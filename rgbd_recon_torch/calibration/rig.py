@@ -1,0 +1,89 @@
+"""RigCalibration (mirrors ``rgbd_recon_tpu/calibration/rig.py``).
+
+The JAX version holds ``jnp`` arrays; here the rig is a NamedTuple of numpy
+arrays, built and kept on the host. Stages move to the device only what
+they read (the pipeline uploads ``depth_limits``, ``camera_positions`` and
+the bbox; the cv volumes feed the session bakes).
+
+Conventions:
+  cv_xyz      f32[K, Dz, Dy, Dx, 3]   sensor (u, v, d_norm) -> world xyz
+  cv_uv       f32[K, Dz, Dy, Dx, 2]   sensor (u, v, d_norm) -> color texcoord
+  cv_xyz_inv  f32[K, Vz, Vy, Vx, 3]   volume-normalized world -> (u, v, d_norm)
+  depth_limits f32[K, 2]              (cv_min_ds, cv_max_ds) per sensor
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.math import Bbox
+from .frustum import Frustum
+from .volume import CalibrationVolume
+
+
+class RigCalibration(NamedTuple):
+    cv_xyz: np.ndarray
+    cv_uv: np.ndarray
+    cv_xyz_inv: np.ndarray
+    depth_limits: np.ndarray
+    camera_positions: np.ndarray
+    bbox_min: np.ndarray
+    bbox_max: np.ndarray
+
+    @property
+    def num_sensors(self) -> int:
+        return self.cv_xyz.shape[0]
+
+    @property
+    def bbox(self) -> Bbox:
+        return Bbox(np.asarray(self.bbox_min), np.asarray(self.bbox_max))
+
+
+def build_rig(
+    volumes_xyz: Sequence[CalibrationVolume],
+    volumes_uv: Sequence[CalibrationVolume],
+    volumes_inv: Sequence[CalibrationVolume],
+    bbox: Bbox,
+) -> RigCalibration:
+    """Stack per-sensor volumes; camera positions from the frustum
+    corner-ray estimate (CalibVolumes.cpp:224-230)."""
+    cam_pos = np.stack(
+        [Frustum(v.corner_points()).camera_position() for v in volumes_xyz]
+    )
+    limits = np.stack([v.depth_limits for v in volumes_xyz]).astype(np.float32)
+    return RigCalibration(
+        cv_xyz=np.stack([np.asarray(v.volume) for v in volumes_xyz]),
+        cv_uv=np.stack([np.asarray(v.volume) for v in volumes_uv]),
+        # the inverse bake stores fvec4 (calibration_inverter.cpp:87); the
+        # shaders only read .xyz (tsdf_integration.vs:31)
+        cv_xyz_inv=np.stack([np.asarray(v.volume[..., :3]) for v in volumes_inv]),
+        depth_limits=limits,
+        camera_positions=cam_pos,
+        bbox_min=np.asarray(bbox.min),
+        bbox_max=np.asarray(bbox.max),
+    )
+
+
+class DeviceRig(NamedTuple):
+    """The rig fields the per-frame stages read, as tensors on the
+    pipeline's device (the cv volumes stay on the host: with the pixel warp
+    baked, only the session bakes read them)."""
+
+    depth_limits: torch.Tensor      # f32[K, 2]
+    camera_positions: torch.Tensor  # f32[K, 3]
+    bbox_min: torch.Tensor          # f32[3]
+    bbox_max: torch.Tensor          # f32[3]
+
+    @property
+    def num_sensors(self) -> int:
+        return self.depth_limits.shape[0]
+
+
+def device_rig(rig: RigCalibration, device) -> DeviceRig:
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return DeviceRig(t(rig.depth_limits), t(rig.camera_positions),
+                     t(rig.bbox_min), t(rig.bbox_max))

@@ -1,0 +1,305 @@
+"""Sweep-composited TSDF renderer (mirrors ``rgbd_recon_tpu/ops/raymarch_fast.py``).
+
+The ray march as a plane sweep: pick the volume axis most aligned with the
+view, resample each slice onto a fixed intermediate grid (a separable
+scale + translate for a pinhole camera: two hat-weight matrix products),
+carry the per-ray hit state front to back (zero crossing + the shader's
+secant refinement, fs:92-110), then warp the intermediate hit buffers to
+the screen with the windowed warp (kernel 2) and shade.
+
+This is the per-slice form of the JAX sweep with the slab skip: slices of
+16-voxel brick layers holding no occupied brick are skipped (decided on the
+host from the frame's brick mask). The resample products keep the JAX
+version's bf16 rounding of weights, slices and the row-stage intermediate
+with float32 accumulation (TF32 off), so both sides resample the same
+numbers. The TPU's 16-slice slab branch is not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.math import Bbox, full_f32, pmat
+from .raymarch import RenderCamera, RenderOutput, RenderParams, phong_shade, vol_to_world_matrix
+from .warp import warp_screen
+
+
+class SweepConfig(NamedTuple):
+    res: tuple[int, int] = (512, 512)  # intermediate grid (rows, cols)
+
+
+def pick_axis(modelview: np.ndarray, vol_to_world: np.ndarray) -> tuple[int, bool]:
+    """Sweep axis (0=x, 1=y, 2=z in volume space) and whether the camera
+    sits on the high side. Host-side, on concrete matrices."""
+    mv = np.asarray(modelview) @ np.asarray(vol_to_world)
+    inv = np.linalg.inv(mv)
+    eye = inv[:3, 3]
+    fwd = -inv[:3, 2]
+    axis = int(np.argmax(np.abs(fwd)))
+    return axis, bool(eye[axis] > 0.5)
+
+
+def _permutation(axis: int):
+    """(coord_perm, array_perm): volume coords (x, y, z) -> sweep coords
+    (s, r, c); vol array [z, y, x] -> [sweep, row, col]."""
+    others = [a for a in (0, 1, 2) if a != axis]
+    coord_perm = (axis, others[1], others[0])
+    return coord_perm, tuple(2 - a for a in coord_perm)
+
+
+def _hat_rows(coords: torch.Tensor, n: int) -> torch.Tensor:
+    """[m, n] linear-interp weights; outside-volume samples read as 0."""
+    i = torch.arange(n, dtype=torch.float32, device=coords.device)
+    return torch.clamp(1.0 - (coords[:, None] - i).abs(), 0.0, 1.0)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class SweepResult(NamedTuple):
+    hit: torch.Tensor        # f32[Ti, Si] 0/1
+    hit_s: torch.Tensor      # f32[Ti, Si] sweep coordinate of the refined hit
+    hit_color: torch.Tensor  # f32[Ti, Si, 4]
+    hit_grad: torch.Tensor   # f32[Ti, Si, 3] (sweep-coordinate order)
+    base_extent: tuple       # (r0, r1, c0, c1) intermediate window, volume units
+    eye_p: torch.Tensor      # eye in permuted coords
+    num_samples: torch.Tensor  # f32[Ti, Si]
+
+
+def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
+          limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
+          slab_occupied: np.ndarray | None = None) -> SweepResult:
+    """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
+    Z-MAJOR color volume ``cvol`` [Vz, 4, Vy, Vx] (the dense-emit layout);
+    ``slab_occupied`` host bool[n_slices] in physical slice order."""
+    dev = tsdf.device
+    coord_perm, array_perm = _permutation(axis)
+    vol = tsdf.permute(array_perm)                     # [S, R, C]
+    m = {0: 0, 1: 2, 2: 3}
+    col = cvol.permute((m[array_perm[0]], 1, m[array_perm[1]], m[array_perm[2]]))
+    ns, nr, nc = vol.shape
+
+    v2w = torch.as_tensor(vol_to_world_matrix(bbox), device=dev)
+    with full_f32():
+        inv = torch.linalg.inv(pmat(cam.modelview, v2w))
+    eye = inv[:3, 3]
+    eye_p = torch.stack([eye[coord_perm[0]], eye[coord_perm[1]], eye[coord_perm[2]]])
+    if flip:
+        eye_p = torch.stack([1.0 - eye_p[0], eye_p[1], eye_p[2]])
+
+    s0 = 0.5 / ns
+    es = eye_p[0]
+    denom = torch.where((s0 - es).abs() < 1e-6, 1e-6, s0 - es)
+    lo, hi = [], []
+    for sk in (0.5 / ns, 1.0 - 0.5 / ns):
+        sigma = (sk - es) / denom
+        lo.append(eye_p[1:] + (0.0 - eye_p[1:]) / sigma)
+        hi.append(eye_p[1:] + (1.0 - eye_p[1:]) / sigma)
+    allpts = torch.stack(lo + hi)
+    g_lo = torch.clamp(allpts.amin(dim=0), -1.0, 2.0)
+    g_hi = torch.clamp(allpts.amax(dim=0), -1.0, 2.0)
+    ti, si = cfg.res
+    ar_t = (torch.arange(ti, dtype=torch.float32, device=dev) + 0.5) / ti
+    ar_s = (torch.arange(si, dtype=torch.float32, device=dev) + 0.5) / si
+    r_grid = g_lo[0] + ar_t * (g_hi[0] - g_lo[0])
+    c_grid = g_lo[1] + ar_s * (g_hi[1] - g_lo[1])
+    dr2 = 2.0 * (r_grid[1] - r_grid[0])
+    dc2 = 2.0 * (c_grid[1] - c_grid[0])
+    ds = 1.0 / ns
+    bf16 = torch.bfloat16
+
+    def resample(k_phys, sigma):
+        """[5, Ti, Si] (density, rgba) of slice k_phys at p = e + sigma (g - e)."""
+        pr = eye_p[1] + sigma * (r_grid - eye_p[1])
+        pc = eye_p[2] + sigma * (c_grid - eye_p[2])
+        wr = _bf16(_hat_rows(pr * nr - 0.5, nr))         # [Ti, R]
+        wc = _bf16(_hat_rows(pc * nc - 0.5, nc))         # [Si, C]
+        both = torch.cat([vol[k_phys][None], col[k_phys]], 0).to(torch.float32)
+        with full_f32():
+            t = wr @ both.permute(1, 0, 2).reshape(nr, 5 * nc)          # [Ti, 5C]
+            out = _bf16(t).reshape(ti * 5, nc) @ wc.T                   # [5Ti, Si]
+        return out.reshape(ti, 5, si).permute(1, 0, 2)
+
+    hit_s = torch.full((ti, si), -1.0, device=dev)
+    hit_c = torch.zeros((4, ti, si), dtype=bf16, device=dev)
+    hit_g = torch.zeros((3, ti, si), dtype=bf16, device=dev)
+    nsamp = torch.zeros((ti, si), device=dev)
+    prev_clear = (torch.full((ti, si), -limit, device=dev),
+                  torch.zeros((4, ti, si), dtype=bf16, device=dev),
+                  torch.zeros((3, ti, si), dtype=bf16, device=dev))
+    prev_d, prev_c, prev_g = prev_clear
+    for k in range(ns):
+        k_phys = (ns - 1 - k) if flip else k
+        active = hit_s < 0.0
+        if slab_occupied is not None and not slab_occupied[k_phys]:
+            # an empty slice: no crossing, the carry decays to the clear values
+            nsamp = nsamp + active.to(torch.float32)
+            prev_d, prev_c, prev_g = prev_clear
+            continue
+        s_k = (k + 0.5) * ds
+        sigma = (s_k - es) / denom
+        smp = resample(k_phys, sigma)
+        d = smp[0]
+        c = smp[1:5]
+        gr = (torch.roll(d, -1, 0) - torch.roll(d, 1, 0)) / (dr2 * sigma + 1e-12)
+        gc = (torch.roll(d, -1, 1) - torch.roll(d, 1, 1)) / (dc2 * sigma + 1e-12)
+        gs = (d - prev_d) / ds
+        g = torch.stack([gs, gr, gc], dim=0)
+        crossed = active & (d > 0.0) & (k > 0)
+        den = d - prev_d
+        frac = prev_d / torch.where(den.abs() > 1e-20, den, 1e-20)
+        s_hit = s_k - ds - ds * frac
+        alpha = torch.clamp(-frac, 0.0, 1.0)
+        c_hit = prev_c.to(torch.float32) + (c - prev_c.to(torch.float32)) * alpha[None]
+        g_hit = prev_g.to(torch.float32) + (g - prev_g.to(torch.float32)) * alpha[None]
+        hit_s = torch.where(crossed, s_hit, hit_s)
+        hit_c = torch.where(crossed[None], c_hit.to(bf16), hit_c)
+        hit_g = torch.where(crossed[None], g_hit.to(bf16), hit_g)
+        nsamp = nsamp + active.to(torch.float32)
+        prev_d, prev_c, prev_g = d, c.to(bf16), g.to(bf16)
+
+    hit = (hit_s >= 0.0).to(torch.float32)
+    return SweepResult(
+        hit, torch.clamp(hit_s, min=0.0),
+        hit_c.to(torch.float32).permute(1, 2, 0),
+        hit_g.to(torch.float32).permute(1, 2, 0),
+        (g_lo[0], g_hi[0], g_lo[1], g_hi[1]), eye_p, nsamp,
+    )
+
+
+def screen_tile(h: int, w: int, ti: int, si: int):
+    """The screen-warp tile of ``raymarch_fast.py:538-545``: the largest
+    dividing tile, taken when the TPU kernel accepts it (pixel count a
+    multiple of 1024, source footprint within one 128-px window)."""
+    th = next((t for t in (48, 24, 16, 8) if h % t == 0), None)
+    tw = next((t for t in (128, 64, 32) if w % t == 0), None)
+    if (th is not None and tw is not None and (th * tw) % 1024 == 0
+            and math.ceil(tw * si / w * 1.5) + 16 <= 128):
+        return th, tw
+    return None
+
+
+def _taps(packed: torch.Tensor, fr: torch.Tensor, fc: torch.Tensor) -> torch.Tensor:
+    """Exact per-pixel bilinear taps (render sizes no tile fits)."""
+    ti, si, ch = packed.shape
+    i0f, j0f = torch.floor(fr), torch.floor(fc)
+    ff = torch.clamp(fr - i0f, 0.0, 1.0)[..., None]
+    gg = torch.clamp(fc - j0f, 0.0, 1.0)[..., None]
+    i0, j0 = i0f.to(torch.int64), j0f.to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=ti - 1)
+    j1 = torch.clamp(j0 + 1, max=si - 1)
+    flat = packed.reshape(ti * si, ch)
+    return (flat[i0 * si + j0] * (1 - ff) * (1 - gg) + flat[i0 * si + j1] * (1 - ff) * gg
+            + flat[i1 * si + j0] * ff * (1 - gg) + flat[i1 * si + j1] * ff * gg)
+
+
+def shade_sweep(res: SweepResult, cam: RenderCamera, bbox: Bbox, axis: int,
+                flip: bool, ns_vox: int, params: RenderParams = RenderParams(),
+                cfg: SweepConfig = SweepConfig()) -> RenderOutput:
+    """Screen warp + shading of a SweepResult (the post-sweep half of
+    render_fast)."""
+    dev = res.hit.device
+    coord_perm, _ = _permutation(axis)
+    ti, si = cfg.res
+    v2w = torch.as_tensor(vol_to_world_matrix(bbox), device=dev)
+    with full_f32():
+        inv = torch.linalg.inv(pmat(cam.proj, pmat(cam.modelview, v2w)))
+    w, h = cam.width, cam.height
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 - 1.0
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2.0 - 1.0
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    one = torch.ones_like(xx)
+    pn = pmat(torch.stack([xx, yy, -one, one], -1), inv.T)
+    pf = pmat(torch.stack([xx, yy, one, one], -1), inv.T)
+    d = pf[..., :3] / pf[..., 3:4] - pn[..., :3] / pn[..., 3:4]
+
+    eye_p = res.eye_p
+    d_p = torch.stack([d[..., coord_perm[0]], d[..., coord_perm[1]],
+                       d[..., coord_perm[2]]], -1)
+    if flip:
+        d_p = torch.cat([-d_p[..., :1], d_p[..., 1:]], -1)
+    d0 = torch.where(d_p[..., 0].abs() < 1e-9, 1e-9, d_p[..., 0])
+    s0 = 0.5 / ns_vox
+    t_base = (s0 - eye_p[0]) / d0
+    g_r = eye_p[1] + t_base * d_p[..., 1]
+    g_c = eye_p[2] + t_base * d_p[..., 2]
+    r0, r1, c0, c1 = res.base_extent
+    fr = (g_r - r0) / (r1 - r0) * ti - 0.5
+    fc = (g_c - c0) / (c1 - c0) * si - 0.5
+
+    hit = res.hit[..., None]
+    packed = torch.cat([hit, res.hit_s[..., None] * hit, res.hit_color * hit,
+                        res.hit_grad * hit], dim=-1).contiguous()       # [Ti, Si, 9]
+    fr_cl = torch.clamp(fr, 0.0, ti - 1.0).contiguous()
+    fc_cl = torch.clamp(fc, 0.0, si - 1.0).contiguous()
+    tile = screen_tile(h, w, ti, si)
+    if tile is not None:
+        warped = warp_screen(packed, fr_cl, fc_cl, tile)
+    else:
+        warped = _taps(packed, fr_cl, fc_cl)
+    wmask = warped[..., 0]
+    hit = wmask > 0.5
+    norm = torch.clamp(wmask, min=1e-6)[..., None]
+    hit_s = warped[..., 1:2] / norm
+    rgba = warped[..., 2:6] / norm
+    grad_p = warped[..., 6:9] / norm
+
+    t_hit = (hit_s[..., 0] - eye_p[0]) / d0
+    pos_p = eye_p + d_p * t_hit[..., None]
+    comps = [None, None, None]
+    comps[coord_perm[0]] = (1.0 - pos_p[..., 0]) if flip else pos_p[..., 0]
+    comps[coord_perm[1]] = pos_p[..., 1]
+    comps[coord_perm[2]] = pos_p[..., 2]
+    pos = torch.stack(comps, dim=-1)
+    g = [None, None, None]
+    g[coord_perm[0]] = -grad_p[..., 0] if flip else grad_p[..., 0]
+    g[coord_perm[1]] = grad_p[..., 1]
+    g[coord_perm[2]] = grad_p[..., 2]
+    nvol = -torch.stack(g, dim=-1)
+    nn = torch.linalg.vector_norm(nvol, dim=-1, keepdim=True)
+    nvol = nvol / torch.where(nn < 1e-20, 1.0, nn)
+
+    normal_view = pmat(nvol, cam.modelview[:3, :3].T)
+    nn2 = torch.linalg.vector_norm(normal_view, dim=-1, keepdim=True)
+    normal_view = normal_view / torch.where(nn2 < 1e-20, 1.0, nn2)
+    mvw = pmat(cam.modelview, v2w)
+    view_pos = pmat(pos, mvw[:3, :3].T) + mvw[:3, 3]
+    if params.shade_mode == 1:
+        rgba = torch.cat([phong_shade(view_pos, normal_view), rgba[..., 3:4]], -1)
+    elif params.shade_mode == 2:
+        rgba = torch.cat([nvol, rgba[..., 3:4]], -1)
+
+    z = view_pos[..., 2]
+    zs = torch.where(z.abs() < 1e-20, -1e-20, z)
+    frag_depth = (cam.proj[2, 2] * z + cam.proj[2, 3]) / -zs * 0.5 + 0.5
+    miss = ~hit
+    rgba = torch.where(miss[..., None], 0.0, rgba)
+    frag_depth = torch.where(miss, 1.0, frag_depth)
+    nsamp = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    return RenderOutput(rgba, frag_depth, hit, nsamp)
+
+
+def render_fast(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera,
+                bbox: Bbox, limit: float, axis: int, flip: bool,
+                params: RenderParams = RenderParams(), cfg: SweepConfig = SweepConfig(),
+                slab_occupied: np.ndarray | None = None) -> RenderOutput:
+    """Sweep + screen warp + shading (shade modes 0/1/2)."""
+    res = sweep(tsdf, cvol, cam, bbox, limit, axis, flip, cfg, slab_occupied)
+    return shade_sweep(res, cam, bbox, axis, flip, tsdf.shape[2 - axis], params, cfg)
+
+
+def slab_occupancy(mask16: torch.Tensor, axis: int, n_slices: int) -> np.ndarray:
+    """Per-slice occupancy flags along the sweep axis from the 16^3 brick
+    mask: host bool[n_slices] (one device sync per frame)."""
+    array_axis = 2 - axis
+    other = tuple(a for a in range(3) if a != array_axis)
+    per_block = mask16.any(dim=other[1]).any(dim=other[0]).cpu().numpy()
+    if n_slices % per_block.shape[0] != 0:
+        raise ValueError(
+            f"slab_occupancy: {n_slices} slices not divisible by "
+            f"{per_block.shape[0]} brick layers along axis {axis}")
+    return np.repeat(per_block, n_slices // per_block.shape[0])

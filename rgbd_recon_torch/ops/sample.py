@@ -1,0 +1,45 @@
+"""GL-exact texture sampling on torch tensors (mirrors
+``rgbd_recon_tpu/ops/sample.py``; only the 2D LINEAR sampler is ported).
+
+* texel ``i`` has its center at normalized coordinate ``(i + 0.5) / N``
+* LINEAR: ``c = t*N - 0.5`` clamped to ``[0, N-1]``, lerp between
+  ``floor(c)`` and ``floor(c)+1``
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _linear_prep(t: torch.Tensor, n: int):
+    c = torch.clamp(t * n - 0.5, 0.0, float(n - 1))
+    i0f = torch.floor(c)
+    f = c - i0f
+    i0 = i0f.to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    return i0, i1, f
+
+
+def sample2d(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """LINEAR-sample ``img [H, W, C]`` at texcoords ``uv [..., 2]`` -> ``[..., C]``."""
+    h, w = img.shape[0], img.shape[1]
+    flat = img.reshape(h * w, -1)
+    s, t = uv[..., 0], uv[..., 1]
+    x0, x1, fx = _linear_prep(s, w)
+    y0, y1, fy = _linear_prep(t, h)
+    v00 = flat[y0 * w + x0]
+    v01 = flat[y0 * w + x1]
+    v10 = flat[y1 * w + x0]
+    v11 = flat[y1 * w + x1]
+    fx = fx[..., None]
+    fy = fy[..., None]
+    top = v00 * (1.0 - fx) + v01 * fx
+    bot = v10 * (1.0 - fx) + v11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def pixel_texcoords(h: int, w: int, device=None) -> torch.Tensor:
+    """Texcoord grid hitting every texel center, ``[H, W, 2]`` as (s, t)."""
+    s = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+    t = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+    tt, ss = torch.meshgrid(t, s, indexing="ij")
+    return torch.stack([ss, tt], dim=-1)

@@ -1,0 +1,219 @@
+"""Brick-sparse TSDF + color integration emitting the dense volumes
+(mirrors ``rgbd_recon_tpu/ops/tsdf_dense.py``).
+
+``integrate_dense`` is the port of the TPU kernel ``integrate_dense_pallas``
+at the pipeline's settings (``zmajor=True, vol_dtype=bf16``, per-sensor
+classes from the depth-band cull): TSDF bf16[Vz, Vy, Vx] cleared to -limit
+and color bf16[Vz, 4, Vy, Vx] (rgb + has-quality flag) cleared to 0. The
+CUDA kernel (``csrc/integrate_dense.cu``) reads ``AffineTables.coeffs``
+directly — the TPU's session-baked ``cmats_full`` layout is not ported —
+and ``integrate_dense_plain`` is the same function in PyTorch.
+
+Per voxel and sensor (``tsdf_persist._fuse_update`` / ``fuse_chunk_v3``):
+the quadratic warp gives window-relative pixel coordinates; a voxel outside
+the image or the [0, 1] depth range takes the image's corner pixel values;
+depth samples NEAREST and (1 - silhouette), quality and registered rgb
+LINEAR, all clamped to the brick's window; then the reference's TSDF and
+color-blend update (tsdf_integration.vs:23-59, tsdf_raymarch.fs:295-320)
+with the ``SIL_PL`` silhouette gate. The kernel samples in float32 where
+the TPU kernel sampled through bf16 windows and weights, so the two agree
+to the bound of ``tests/test_tsdf_affine.py:109-116``, not bitwise.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import native
+from ..utils.math import full_f32
+from .tsdf import TsdfConfig
+from .tsdf_affine import AffineTables, NBASIS, _brick_basis
+from .tsdf_fast import BRICK, occupied_list, pack_frames
+
+B3 = BRICK ** 3
+SIL_PL = 0.998       # bf16-tolerant silhouette gate (tsdf_pallas.py:57)
+PLAIN_CHUNK = 64     # bricks per vectorized step of the plain version
+
+
+def _fuse(state, d_vox, depth, qual, sflip, rgb, limit):
+    """One sensor's TSDF + color-blend update (``_fuse_update``)."""
+    wt, tw, tc, tcw, tc2, tcw2 = state
+    sdist = d_vox - depth
+    skip = (sflip > 1.0 - SIL_PL) & (wt >= limit)
+    in_front = sdist <= -limit
+    in_band = (sdist > -limit) & (sdist < limit)
+    new_tw = tw + qual
+    accum = torch.where(
+        new_tw > 0.0,
+        (wt * tw + qual * sdist) / torch.where(new_tw > 0.0, new_tw, 1.0),
+        wt,
+    )
+    wt_next = torch.where(in_front, -limit, torch.where(in_band, accum, wt))
+    tw_next = torch.where(in_band & (new_tw > 0.0), new_tw, tw)
+    wt = torch.where(skip, -limit, wt_next)
+    tw = torch.where(skip, tw, tw_next)
+    dist = (depth - d_vox).abs()
+    q_c = torch.where(dist < limit, qual, 0.0)
+    w_c = q_c / (dist + 0.01)
+    w2 = 1.0 / torch.clamp(dist, min=1e-9)
+    return (wt, tw, tc + rgb * w_c[:, None], tcw + w_c,
+            tc2 + rgb * w2[:, None], tcw2 + w2)
+
+
+def _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
+                 xstride, limit):
+    """Fused (wt f32[n, B3], rgb f32[n, 3, B3], flag f32[n, B3]) of the
+    bricks ``bricks`` i64[n] — the plain form of one kernel block each."""
+    num_k = packed.shape[0]
+    n = bricks.shape[0]
+    dev = packed.device
+    shape = (n, B3)
+    state = (torch.full(shape, limit, device=dev), torch.zeros(shape, device=dev),
+             torch.zeros((n, 3, B3), device=dev), torch.zeros(shape, device=dev),
+             torch.zeros((n, 3, B3), device=dev), torch.zeros(shape, device=dev))
+    scale = torch.tensor([w, h, 1.0], device=dev)
+    for k in range(num_k):
+        y_lo = win_off[k, bricks, 0].to(torch.int64)
+        x_lo = win_off[k, bricks, 1].to(torch.int64) * xstride
+        cs = coeffs[k, bricks, :3, :] * scale[None, :, None]       # [n, 3, 10]
+        off = torch.zeros_like(cs)
+        off[:, 0, 0] = -(x_lo.to(torch.float32) + 0.5)
+        off[:, 1, 0] = -(y_lo.to(torch.float32) + 0.5)
+        with full_f32():
+            pc = torch.einsum("nca,av->ncv", cs + off, basis)     # [n, 3, B3]
+        pu, pv, pd = pc[:, 0], pc[:, 1], pc[:, 2]
+        xl = x_lo.to(torch.float32)[:, None]
+        yl = y_lo.to(torch.float32)[:, None]
+        invalid = ((pu < -0.5 - xl) | (pu > w - 0.5 - xl)
+                   | (pv < -0.5 - yl) | (pv > h - 0.5 - yl)
+                   | (pd < 0.0) | (pd > 1.0))
+        hu = torch.clamp(w - 1 - x_lo, max=wx - 1)[:, None]
+        hv = torch.clamp(h - 1 - y_lo, max=wy - 1)[:, None]
+        img = packed[k].reshape(h * w, 6)
+
+        def clip_hi(x, hi):
+            return torch.minimum(torch.clamp(x, min=0.0), hi.to(torch.float32))
+
+        nu = clip_hi(torch.floor(pu + 0.5), hu).to(torch.int64)
+        nv = clip_hi(torch.floor(pv + 0.5), hv).to(torch.int64)
+        depth = img[(y_lo[:, None] + nv) * w + x_lo[:, None] + nu, 0]
+        cu, cv_ = clip_hi(pu, hu), clip_hi(pv, hv)
+        iu, iv = torch.floor(cu), torch.floor(cv_)
+        gu, gv = (cu - iu)[..., None], (cv_ - iv)[..., None]
+        iu, iv = iu.to(torch.int64), iv.to(torch.int64)
+        u0 = x_lo[:, None] + iu
+        u1 = x_lo[:, None] + torch.minimum(iu + 1, hu)
+        v0 = y_lo[:, None] + iv
+        v1 = y_lo[:, None] + torch.minimum(iv + 1, hv)
+        chans = [2, 1, 3, 4, 5]                  # (1 - sil), qual, r, g, b
+
+        def taps(v, u):
+            t = img[v * w + u][..., chans]
+            return torch.cat([1.0 - t[..., :1], t[..., 1:]], dim=-1)
+
+        left = (1.0 - gv) * taps(v0, u0) + gv * taps(v1, u0)
+        right = (1.0 - gv) * taps(v0, u1) + gv * taps(v1, u1)
+        lin = (1.0 - gu) * left + gu * right                     # [n, B3, 5]
+        cv = packed[k, 0, 0]                                     # corner pixel
+        corner = torch.stack([1.0 - cv[2], cv[1], cv[3], cv[4], cv[5]])
+        lin = torch.where(invalid[..., None], corner, lin)
+        depth = torch.where(invalid, cv[0], depth)
+        full = _fuse(state, pd, depth, lin[..., 1], lin[..., 0],
+                     lin[..., 2:].permute(0, 2, 1), limit)
+        zero = torch.zeros_like(pd)
+        inv = _fuse(state, zero, cv[0] + zero, cv[1] + zero, 1.0 - cv[2] + zero,
+                    cv[3:6][None, :, None] + torch.zeros_like(state[2]), limit)
+        kc = (cls[k, bricks] if cls is not None
+              else torch.zeros(n, dtype=torch.int32, device=dev))
+        front = (torch.full_like(state[0], -limit),) + state[1:]
+        out = []
+        for s_full, s_inv, s_front, s_none in zip(full, inv, front, state):
+            c = kc.view((n,) + (1,) * (s_full.dim() - 1))
+            out.append(torch.where(c == 0, s_full, torch.where(
+                c == 3, s_inv, torch.where(c == 2, s_front, s_none))))
+        state = tuple(out)
+    wt, _, tc, tcw, tc2, tcw2 = state
+    hasq = tcw > 0.0
+    rgb = torch.where(hasq[:, None], tc / torch.clamp(tcw, min=1e-20)[:, None],
+                      tc2 / torch.clamp(tcw2, min=1e-20)[:, None])
+    return wt, rgb, torch.where(hasq, 1.0, -1.0)
+
+
+def integrate_dense_plain(packed, coeffs, idx, count, win_off, cls, res,
+                          wy, wx, xstride, limit):
+    """PyTorch form of kernel 1 (see integrate_dense); takes the kernel's
+    arguments. Syncs with the device once to read the occupied count."""
+    vx, vy, vz = res
+    nby, nbx = vy // BRICK, vx // BRICK
+    _, h, w, _ = packed.shape
+    dev = packed.device
+    tsdf = torch.full((vz * vy * vx,), -limit, device=dev)
+    color = torch.zeros((vz * 4 * vy * vx,), device=dev)
+    basis = torch.as_tensor(_brick_basis(), device=dev)
+    v = torch.arange(B3, device=dev)
+    lz, ly, lx = v // (BRICK * BRICK), (v // BRICK) % BRICK, v % BRICK
+    n_occ = int(count.reshape(-1)[0])
+    for s in range(0, n_occ, PLAIN_CHUNK):
+        bricks = idx[s:min(s + PLAIN_CHUNK, n_occ)].to(torch.int64)
+        wt, rgb, flag = _brick_chunk(packed, coeffs, win_off, cls, bricks,
+                                     basis, h, w, wy, wx, xstride, limit)
+        bz = (bricks // (nby * nbx))[:, None]
+        by = ((bricks // nbx) % nby)[:, None]
+        bx = (bricks % nbx)[:, None]
+        z, y, x = bz * BRICK + lz, by * BRICK + ly, bx * BRICK + lx
+        tsdf[(z * vy + y) * vx + x] = wt
+        for c in range(4):
+            val = rgb[:, c] if c < 3 else flag
+            color[((z * 4 + c) * vy + y) * vx + x] = val
+    return (tsdf.reshape(vz, vy, vx).to(torch.bfloat16),
+            color.reshape(vz, 4, vy, vx).to(torch.bfloat16))
+
+
+_INTEGRATE_DENSE = native.Kernel(
+    "integrate_dense",
+    [native.P] * 8 + [native.I] * 11 + [native.F],
+)
+
+
+def integrate_dense_cuda(packed, coeffs, idx, count, win_off, cls, res,
+                         wy, wx, xstride, limit):
+    """Kernel 1 on the card (``csrc/integrate_dense.cu``); the arguments of
+    ``integrate_dense_plain``. No host sync: the kernel reads the occupied
+    count from device memory."""
+    vx, vy, vz = res
+    num_k, h, w, _ = packed.shape
+    nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
+    max_bricks = idx.shape[0]
+    dev = packed.device
+    native.check(packed, "packed", torch.float32, (num_k, h, w, 6), dev)
+    native.check(coeffs, "coeffs", torch.float32, (num_k, nb, 4, NBASIS), dev)
+    native.check(idx, "idx", torch.int32, (max_bricks,), dev)
+    native.check(count, "count", torch.int32, (1,), dev)
+    native.check(win_off, "win_off", torch.int32, (num_k, nb, 2), dev)
+    if cls is not None:
+        native.check(cls, "cls", torch.int32, (num_k, nb), dev)
+    tsdf = torch.empty((vz, vy, vx), dtype=torch.bfloat16, device=dev)
+    color = torch.empty((vz, 4, vy, vx), dtype=torch.bfloat16, device=dev)
+    _INTEGRATE_DENSE(
+        packed.data_ptr(), coeffs.data_ptr(), idx.data_ptr(), count.data_ptr(),
+        win_off.data_ptr(), cls.data_ptr() if cls is not None else None,
+        tsdf.data_ptr(), color.data_ptr(), num_k, h, w, nb, vx // BRICK,
+        vy // BRICK, vz // BRICK, max_bricks, wy, wx, xstride, limit)
+    return tsdf, color
+
+
+def integrate_dense(frames, affine: AffineTables, cfg: TsdfConfig,
+                    mask16: torch.Tensor, max_bricks: int, win_off: torch.Tensor,
+                    wy: int, wx: int, xstride: int, cls: torch.Tensor | None = None):
+    """Fused TSDF bf16[Vz, Vy, Vx] + z-major color bf16[Vz, 4, Vy, Vx] of the
+    occupied 16^3 bricks of ``mask16`` (the first ``max_bricks`` in
+    ascending order). ``win_off`` i32[K, NB, 2] window origins
+    (win_offsets_affine at (wy, wx, xstride)); ``cls`` i32[K, NB] classes
+    of block_depth_cull_baked or None (all FULL)."""
+    vx, vy, vz = cfg.res
+    if vx % 128 or vy % BRICK or vz % BRICK:
+        raise ValueError(f"dense emit needs Vx % 128 == 0 and 16-aligned res, got {cfg.res}")
+    packed = pack_frames(frames)
+    idx, _, count = occupied_list(mask16, max_bricks)
+    run = integrate_dense_cuda if native.is_cuda(packed) else integrate_dense_plain
+    return run(packed, affine.coeffs, idx, count, win_off, cls, cfg.res, wy, wx,
+               xstride, float(cfg.limit))

@@ -1,0 +1,315 @@
+"""Whole-frame pipeline (mirrors ``rgbd_recon_tpu/runtime/pipeline.py``).
+
+The reference's per-frame hot path (kinect_client.cpp:580-614 ``draw3d``)
+in four stages, named like the reference's TimerDatabase entries:
+
+  1preprocess  sensor filtering (bilateral + registration kernels),
+               brick occupancy (mark_bricks kernel), depth-band cull
+  2integrate   brick-sparse TSDF + color fusion (integrate_dense kernel)
+  3recon       sweep raymarch renderer (screen-warp kernel)
+  holefill     inpaint pyramid + colorfill
+
+This is the staged fast path of the JAX pipeline at the settings its main
+path uses: pinhole rig with the affine pixel warp, 16-aligned volume with
+``Vx % 128 == 0``, per-brick quadratic warp, dense emit. What the port
+does not implement is rejected in ``_configure`` / on the first frame, not
+ignored: fused mode, the dense-table integrator (``use_affine=False`` or
+an affine residual over ``affine_tol``), distorted rigs (pixel-warp
+residual over ``warp_tol``), and volumes the dense emit cannot tile.
+Session bakes run lazily at the first frame's sensor size, in torch, on
+the pipeline's ``device``.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..calibration.rig import RigCalibration, device_rig
+from ..ops import bricks as brick_ops
+from ..ops import inpaint
+from ..ops import preprocess as pp
+from ..ops import raymarch as rm
+from ..ops import raymarch_fast as rmf
+from ..ops import tsdf_affine
+from ..ops import tsdf as tsdf_ops
+from ..ops.tsdf_dense import integrate_dense
+from ..ops.tsdf_fast import BRICK
+from ..ops.warp import bake_pixel_warp
+from ..utils.math import look_at, perspective
+from ..utils.timers import TimerDatabase
+
+
+class PipelineConfig(NamedTuple):
+    """Static configuration: the JAX pipeline's fields and defaults
+    (kinect_client.cpp:86-92)."""
+
+    voxel_size: float = 0.01
+    brick_size: float = 0.1
+    tsdf_limit: float = 0.01
+    min_voxels_per_brick: int = 10
+    render_width: int = 1280
+    render_height: int = 720
+    shade_mode: int = 0
+    use_bricks: bool = True
+    skip_space: bool = True
+    fill_holes: bool = True
+    num_lods: int = 6
+    filter_textures: bool = True
+    use_processed_depth: bool = True
+    refine_boundary: bool = True
+    tsdf_res: tuple[int, int, int] | None = None
+    fast_path: bool = True
+    max_bricks: int | None = None
+    sample_window: int = 64
+    sweep_res: tuple[int, int] | None = None
+    use_warp: bool = True
+    warp_tol: float = 1e-4
+    warp_knots: int = 48
+    pw_warp_tol: float = 1e-3
+    use_pallas: bool | None = None
+    use_affine: bool | None = None
+    affine_tol: float = 0.02
+    brick_cull: bool = True
+    fused: bool = False
+
+
+class FrameOutput(NamedTuple):
+    color: torch.Tensor           # f32[H, W, 4] final image (hole-filled)
+    depth: torch.Tensor           # f32[H, W] window depth
+    hit: torch.Tensor             # bool[H, W]
+    tsdf: torch.Tensor            # bf16[Vz, Vy, Vx]
+    occupied_ratio: torch.Tensor  # f32[]
+    num_samples: torch.Tensor     # i32[H, W]
+    occupied_bricks: torch.Tensor  # i32[] occupied 16^3 blocks this frame
+
+
+STAGE_TIMERS = ("1preprocess", "2integrate", "3recon", "holefill")
+
+
+class FramePipeline:
+    """Rig + static config + session bakes; ``step`` runs one frame.
+
+    ``device``: where every per-frame tensor lives. On a CUDA device the
+    four stages launch the hand-written kernels; on the CPU the kernels'
+    plain PyTorch versions run (tests). ``log``: optional callable(str)."""
+
+    def __init__(self, rig: RigCalibration, cfg: PipelineConfig = PipelineConfig(),
+                 log: Callable[[str], None] | None = None,
+                 device: torch.device | str = "cpu"):
+        self.rig = rig
+        self.bbox = rig.bbox
+        self.device = torch.device(device)
+        self._log = log or (lambda s: None)
+        self.timers = TimerDatabase()
+        for t in STAGE_TIMERS:
+            self.timers.add_timer(t)
+        self._drig = device_rig(rig, self.device)
+        self._configure(cfg)
+
+    def _configure(self, cfg: PipelineConfig) -> None:
+        unsupported = {
+            "fused": cfg.fused,
+            "fast_path=False": not cfg.fast_path,
+            "use_bricks=False": not cfg.use_bricks,
+            "use_warp=False": not cfg.use_warp,
+            "use_pallas=False": cfg.use_pallas is False,
+            "use_affine=False": cfg.use_affine is False,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"not implemented in the torch port yet: {', '.join(bad)}")
+        self.cfg = cfg
+        if cfg.tsdf_res is not None:
+            self.tsdf_cfg = tsdf_ops.TsdfConfig(cfg.tsdf_res, cfg.tsdf_limit)
+        else:
+            self.tsdf_cfg = tsdf_ops.TsdfConfig.from_voxel_size(
+                self.bbox, cfg.voxel_size, cfg.tsdf_limit, align=BRICK)
+        vx, vy, vz = self.tsdf_cfg.res
+        if vx % 128 or vy % BRICK or vz % BRICK:
+            raise NotImplementedError(
+                f"volume res {self.tsdf_cfg.res}: the torch port needs "
+                "16-aligned res with Vx % 128 == 0 (dense emit)")
+        self.brick_grid = brick_ops.make_brick_grid(
+            self.bbox, cfg.brick_size, cfg.voxel_size)
+        self.pre_cfg = pp.PreprocessConfig(
+            filter_textures=cfg.filter_textures,
+            use_processed_depth=cfg.use_processed_depth,
+            refine_boundary=cfg.refine_boundary,
+        )
+        nb_total = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
+        if cfg.max_bricks is not None:
+            self.max_bricks = min(cfg.max_bricks, nb_total)
+        else:
+            self.max_bricks = min(nb_total, max(1024, nb_total // 4))
+
+        self._log(f"baking per-brick affine warp at {self.tsdf_cfg.res} ...")
+        self.affine = tsdf_affine.bake_affine(self.rig, self.tsdf_cfg, self.device)
+        err = float(self.affine.max_err.max())
+        if not (cfg.use_affine or err <= cfg.affine_tol):
+            raise NotImplementedError(
+                f"affine residual {err:.2e} > affine_tol {cfg.affine_tol}: the "
+                "dense-table integrator is not in the torch port yet")
+        self._log(f"  affine residual {err:.2e} (tol {cfg.affine_tol})")
+        self._sensor_hw = None
+        self._warp = None
+        self._win_off = None
+        self._cull_bake = None
+        self._wy = self._wx = self._xstride = None
+
+    # -- session bakes (at the first frame's sensor size) -----------------
+
+    def _session(self, h: int, w: int) -> None:
+        if self._sensor_hw == (h, w):
+            return
+        self._log(f"baking pixel warp at {h}x{w} ...")
+        warp = bake_pixel_warp(self.rig, h, w, self.device)
+        if max(warp.max_err_xyz, warp.max_err_uv) > self.cfg.warp_tol:
+            raise NotImplementedError(
+                f"cv volumes not affine in depth (residual xyz="
+                f"{warp.max_err_xyz:.2e} uv={warp.max_err_uv:.2e} > "
+                f"{self.cfg.warp_tol}): the piecewise warp for distorted rigs "
+                "is not in the torch port yet")
+        self._warp = warp
+        self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
+        self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(self.affine, w)
+        self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
+                  f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
+        self._win_off = tsdf_affine.win_offsets_affine(
+            self.affine, h, w, self._wy, self._wx, self._xstride)
+        self._cull_bake = (tsdf_affine.bake_cull(self.affine, h, w,
+                                                 float(self.tsdf_cfg.limit))
+                           if self.cfg.brick_cull else None)
+        self._sensor_hw = (h, w)
+
+    def _sweep_res(self) -> tuple[int, int]:
+        if self.cfg.sweep_res is not None:
+            return self.cfg.sweep_res
+
+        def rnd(n):
+            return max(128, min(512, -(-n // 128) * 128))
+
+        return (rnd(self.cfg.render_height), rnd(self.cfg.render_width))
+
+    # -- stages ------------------------------------------------------------
+
+    def _pre(self, depth_m, color):
+        """1preprocess: filtering, brick occupancy, depth-band cull."""
+        cfg = self.cfg
+        frames = pp.preprocess(depth_m, color, self._drig, self.pre_cfg, self._warp)
+        counts = brick_ops.mark_bricks(frames.world, frames.world_valid,
+                                       self.brick_grid)
+        mask = brick_ops.occupancy_mask(counts, cfg.min_voxels_per_brick)
+        occupied = brick_ops.occupied_ratio(mask)
+        mask16 = brick_ops.block_occupancy(mask, self.brick_grid,
+                                           self.tsdf_cfg.res, BRICK)
+        cls = None
+        if self._cull_bake is not None:
+            mask16, _, cls = tsdf_affine.block_depth_cull_baked(
+                mask16, self._cull_bake, frames.depth[..., 0], frames.quality,
+                frames.silhouette, float(self.tsdf_cfg.limit))
+        n_occ = mask16.sum().to(torch.int32)
+        return frames, mask16, occupied, n_occ, cls
+
+    def _integrate(self, frames, mask16, cls):
+        """2integrate: fused TSDF + z-major color volumes (bf16)."""
+        return integrate_dense(
+            frames, self.affine, self.tsdf_cfg, mask16, self.max_bricks,
+            self._win_off, self._wy, self._wx, self._xstride, cls)
+
+    def _render(self, vol, cvol, mask16, mv, proj, axis, flip):
+        """3recon: sweep-composited raymarch."""
+        cfg = self.cfg
+        cam = rm.RenderCamera(mv, proj, cfg.render_width, cfg.render_height)
+        occ = (rmf.slab_occupancy(mask16, axis, self.tsdf_cfg.res[axis])
+               if cfg.skip_space else None)
+        return rmf.render_fast(
+            vol, cvol, cam, self.bbox, float(self.tsdf_cfg.limit), axis, flip,
+            rm.RenderParams(shade_mode=cfg.shade_mode),
+            rmf.SweepConfig(res=self._sweep_res()), occ)
+
+    def _fill(self, color, depth):
+        """holefill: inpaint pyramid + colorfill resolve."""
+        pyr_c, pyr_d = inpaint.build_pyramid(color, depth, self.cfg.num_lods)
+        return inpaint.colorfill(pyr_c, pyr_d)
+
+    # -- public API --------------------------------------------------------
+
+    def _inputs(self, depth_m, color, modelview, proj):
+        def t(a, dtype=None):
+            a = torch.as_tensor(a) if not isinstance(a, torch.Tensor) else a
+            return a.to(self.device, dtype) if dtype else a.to(self.device)
+
+        mv_np = np.asarray(modelview.cpu() if isinstance(modelview, torch.Tensor)
+                           else modelview, np.float32)
+        axis, flip = rmf.pick_axis(mv_np, rm.vol_to_world_matrix(self.bbox))
+        depth = t(depth_m, torch.float32).contiguous()
+        self._session(depth.shape[1], depth.shape[2])
+        col = t(color)
+        if col.dtype != torch.uint8:
+            col = col.to(torch.float32)
+        return (depth, col.contiguous(), t(mv_np), t(proj, torch.float32),
+                axis, flip)
+
+    def step(self, depth_m, color, modelview, proj) -> FrameOutput:
+        """One frame. depth_m f32[K,H,W] meters; color f32[K,Hc,Wc,3] (or
+        u8); modelview/proj f32[4,4] row-major GL matrices (numpy or
+        tensors; the sweep axis is chosen on the host)."""
+        return self._step(depth_m, color, modelview, proj, timed=False)
+
+    def step_timed(self, depth_m, color, modelview, proj) -> FrameOutput:
+        """``step`` with per-stage times recorded into ``self.timers`` under
+        the reference's stage names (CUDA events on a CUDA device; read with
+        ``self.timers.duration(name)``)."""
+        return self._step(depth_m, color, modelview, proj, timed=True)
+
+    def _step(self, depth_m, color, modelview, proj, timed: bool) -> FrameOutput:
+        depth, col, mv, pr, axis, flip = self._inputs(depth_m, color, modelview, proj)
+
+        def scope(name):
+            return (self.timers.scope(name, self.device) if timed
+                    else contextlib.nullcontext())
+
+        with scope("1preprocess"):
+            frames, mask16, occupied, n_occ, cls = self._pre(depth, col)
+        with scope("2integrate"):
+            vol, cvol = self._integrate(frames, mask16, cls)
+        with scope("3recon"):
+            out = self._render(vol, cvol, mask16, mv, pr, axis, flip)
+        color_out = out.color
+        if self.cfg.fill_holes:
+            with scope("holefill"):
+                color_out = self._fill(out.color, out.depth)
+        if timed:
+            self.timers.flush()
+        return FrameOutput(
+            color=color_out, depth=out.depth, hit=out.hit, tsdf=vol,
+            occupied_ratio=occupied, num_samples=out.num_samples,
+            occupied_bricks=n_occ,
+        )
+
+    def check_capacity(self, out: FrameOutput) -> int:
+        """Raise if the frame's occupied-brick count exceeded the capacity
+        (geometry would have been dropped). Returns the count (one host
+        sync, like the reference's per-frame count readback,
+        recon_integration.cpp:430-445)."""
+        n = int(out.occupied_bricks)
+        if n > self.max_bricks:
+            raise RuntimeError(
+                f"occupied bricks {n} exceed max_bricks={self.max_bricks}: "
+                f"geometry dropped — raise PipelineConfig.max_bricks "
+                f"(or leave it None to auto-size)")
+        return n
+
+    def default_camera(self, eye=None) -> tuple[np.ndarray, np.ndarray]:
+        """View/projection aimed at the volume center."""
+        center = (self.bbox.min + self.bbox.max) * 0.5
+        if eye is None:
+            eye = center + np.array([1.5, 0.8, 2.2], np.float32)
+        mv = look_at(eye, center, [0, 1, 0])
+        proj = perspective(
+            50.0, self.cfg.render_width / self.cfg.render_height, 0.1, 200.0)
+        return mv, proj

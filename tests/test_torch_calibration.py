@@ -1,0 +1,87 @@
+"""The port's own rig / scene builder vs the JAX package's, and the port's
+independence from JAX.
+
+The card's machine has no JAX, and the JAX package's calibration modules
+import it, so the port carries numpy copies of what the synthetic rig
+builder reaches; they must reproduce the originals bit for bit.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from rgbd_recon_tpu.calibration import synthetic as jsyn
+from rgbd_recon_tpu.utils.math import Bbox as JBbox
+
+from rgbd_recon_torch.calibration import synthetic
+from rgbd_recon_torch.utils.math import Bbox
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_synthetic_rig_bit_identical():
+    """Every field of the rig and every camera, bit-identical (exact: the
+    copies run the same numpy operations)."""
+    kw = dict(num_sensors=3, fwd_res=(24, 32, 24), inv_res=(32, 32, 32),
+              width=96, height=80)
+    rig, cams = synthetic.synthetic_rig(bbox=Bbox.default(), **kw)
+    jrig, jcams = jsyn.synthetic_rig(bbox=JBbox.default(), **kw)
+    for f in rig._fields:
+        np.testing.assert_array_equal(getattr(rig, f), np.asarray(getattr(jrig, f)),
+                                      err_msg=f)
+    for c, jc in zip(cams, jcams):
+        for f in c._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(c, f)),
+                                          np.asarray(getattr(jc, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("kind", ["sphere", "complex"])
+def test_scene_frames_bit_identical(kind):
+    """Depth and color frames of both scene kinds, bit-identical."""
+    cams = synthetic.make_cameras(2, Bbox.default(), width=64, height=48)
+    jcams = jsyn.make_cameras(2, JBbox.default(), width=64, height=48)
+    d, c = synthetic.render_frames(cams, synthetic.make_scene(kind, Bbox.default()))
+    jd, jc = jsyn.render_frames(jcams, jsyn.make_scene(kind, JBbox.default()))
+    np.testing.assert_array_equal(d, jd)
+    np.testing.assert_array_equal(c, jc)
+    assert (d > 0).mean() > 0.05
+
+
+def test_port_runs_without_jax():
+    """With ``import jax`` made to fail, every module of the port imports
+    and one CPU FramePipeline.step runs on a tiny rig built by the port's
+    own calibration code — what chip_smoke.py needs on the card's machine."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import importlib, pkgutil
+        import numpy as np
+        import rgbd_recon_torch
+        for m in pkgutil.walk_packages(rgbd_recon_torch.__path__, "rgbd_recon_torch."):
+            importlib.import_module(m.name)
+        assert not any(k == "rgbd_recon_tpu" or k.startswith("rgbd_recon_tpu.")
+                       for k in sys.modules), "the port imported the JAX package"
+        from rgbd_recon_torch.calibration import synthetic
+        from rgbd_recon_torch.utils.math import Bbox
+        from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
+        bbox = Bbox.default()
+        rig, cams = synthetic.synthetic_rig(num_sensors=2, bbox=bbox,
+            fwd_res=(16, 24, 16), inv_res=(16, 16, 16), width=96, height=80)
+        d, c = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox))
+        pipe = FramePipeline(rig, PipelineConfig(render_width=64, render_height=48,
+            tsdf_res=(128, 64, 64), voxel_size=0.05, brick_size=0.2, num_lods=3))
+        mv, pr = pipe.default_camera()
+        out = pipe.step(d, c, mv, pr)
+        pipe.check_capacity(out)
+        assert out.color.shape == (48, 64, 4)
+        assert bool(out.color.isfinite().all())
+        print("OK", float(out.hit.float().mean()))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK"), proc.stdout

@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a GPU. The file
+imports no JAX, so it also runs on a machine that has none:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest`` because tests/conftest.py configures JAX).
+"""
+import numpy as np
+import pytest
+import torch
+
+from rgbd_recon_torch import native
+from rgbd_recon_torch.calibration import synthetic
+from rgbd_recon_torch.ops import bricks, preprocess as pp, tsdf_dense
+from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
+from rgbd_recon_torch.ops.warp import warp_screen_cuda, warp_screen_plain, warp_windows
+from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
+from rgbd_recon_torch.utils.math import Bbox
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _small_pipeline(device):
+    bbox = Bbox.default()
+    rig, cams = synthetic.synthetic_rig(num_sensors=3, bbox=bbox, fwd_res=(48, 64, 48),
+                                        inv_res=(48, 48, 48), width=256, height=208)
+    depth, color = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox))
+    cfg = PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
+                         voxel_size=float(np.max(bbox.size) / 128), sweep_res=(256, 256))
+    pipe = FramePipeline(rig, cfg, device=device)
+    mv, proj = pipe.default_camera()
+    return pipe, depth, color, mv, proj
+
+
+def test_bilateral_accum_cuda(dev):
+    """Tolerance atol 2e-4, rtol 2e-5: the TPU kernel's bound against its
+    plain form (tests/test_preprocess_pallas.py:41); sums in another order."""
+    rng = np.random.default_rng(1)
+    depth = (0.6 + 3.0 * rng.random((3, 61, 197))).astype(np.float32)   # ragged tiles
+    depth[rng.random(depth.shape) < 0.1] = 0.0
+    limits = np.array([[0.5, 4.5], [0.6, 4.0], [0.5, 3.0]], np.float32)
+    d, lim = torch.from_numpy(depth).to(dev), torch.from_numpy(limits).to(dev)
+    for g, p in zip(pp.bilateral_accum(d, lim), pp.bilateral_accum_plain(d, lim)):
+        torch.testing.assert_close(g, p, atol=2e-4, rtol=2e-5)
+
+
+@pytest.mark.parametrize("brick_size", [0.1, 0.02])
+def test_mark_bricks_cuda(dev, brick_size):
+    """Integer-exact. brick_size 0.02 gives 1.1 M bins: the global-atomic
+    variant of the kernel."""
+    rng = np.random.default_rng(2)
+    bbox = Bbox.default()
+    world = (bbox.min + rng.random((200_000, 3)) * bbox.size * 1.2 - 0.1 * bbox.size)
+    valid = rng.random(200_000) > 0.3
+    grid = bricks.make_brick_grid(bbox, brick_size, 0.01)
+    w = torch.from_numpy(world.astype(np.float32)).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    got = bricks.mark_bricks(w, v, grid).to(torch.int64)
+    assert torch.equal(got, bricks.mark_bricks_plain(w, v, grid).to(torch.int64))
+    assert int(got.sum()) > 0
+
+
+def test_warp_screen_cuda(dev):
+    """atol 1e-5: the same four fp32 taps in the same order."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.random((128, 128, 9)).astype(np.float32)).to(dev)
+    ys, xs = np.meshgrid(np.arange(96), np.arange(128), indexing="ij")
+    fy = torch.from_numpy(np.clip(ys * 1.3 * (1 + 0.1 * xs / 128) - 3, 0, 127)
+                          .astype(np.float32)).to(dev)
+    fx = torch.from_numpy(np.clip(xs * (1 + 0.08 * ys / 96) - 2, 0, 127)
+                          .astype(np.float32)).to(dev)
+    wh, y0, x0 = warp_windows(128, 128, fy, fx, (8, 128))
+    before = native.KERNELS["warp_screen"].launches
+    got = warp_screen_cuda(img, fy, fx, (8, 128), wh, y0, x0)
+    assert native.KERNELS["warp_screen"].launches == before + 1
+    torch.testing.assert_close(got, warp_screen_plain(img, fy, fx, (8, 128), wh, y0, x0),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_integrate_dense_cuda(dev):
+    """On a real small frame, at the repo's bound between formulations
+    (tests/test_tsdf_affine.py:109-116)."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev)
+    d, c, *_ = pipe._inputs(depth, color, mv, proj)
+    frames, mask16, _, _, cls = pipe._pre(d, c)
+    idx, _, count = occupied_list(mask16, pipe.max_bricks)
+    args = (pack_frames(frames), pipe.affine.coeffs, idx, count, pipe._win_off, cls,
+            pipe.tsdf_cfg.res, pipe._wy, pipe._wx, pipe._xstride, pipe.tsdf_cfg.limit)
+    vol, cvol = tsdf_dense.integrate_dense_cuda(*args)
+    pvol, pcvol = tsdf_dense.integrate_dense_plain(*args)
+    v, pv = vol.float(), pvol.float()
+    assert ((v - pv).abs() > 1e-4).float().mean() < 1e-4
+    assert ((cvol.float() - pcvol.float()).abs().amax(dim=1) > 1e-2).float().mean() < 1e-3
+    occ, pocc = int((v > -0.01 + 1e-9).sum()), int((pv > -0.01 + 1e-9).sum())
+    assert pocc > 1000 and abs(occ - pocc) <= max(100, 0.002 * pocc)
+
+
+def test_slice_cuda_matches_cpu(dev):
+    """The whole step on the card vs the plain versions on the CPU: hit
+    agreement > 0.995, color PSNR > 30 dB, depth median < 2e-3 (the
+    render-parity bounds of tests/test_golden.py:65-69), and every kernel
+    launched."""
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        pipe, depth, color, mv, proj = _small_pipeline(device)
+        before = {k: kern.launches for k, kern in native.KERNELS.items()}
+        o = pipe.step(depth, color, mv, proj)
+        if device.type == "cuda":
+            assert all(native.KERNELS[k].launches > before[k] for k in before)
+        outs[device.type] = [t.float().cpu().numpy() for t in (o.color, o.depth, o.hit)]
+    (gc, gd, gh), (cc, cd, ch) = outs["cuda"], outs["cpu"]
+    gh, ch = gh > 0.5, ch > 0.5
+    assert (gh == ch).mean() > 0.995
+    mse = ((gc[..., :3] - cc[..., :3]) ** 2).mean()
+    assert mse == 0 or 10 * np.log10(1.0 / mse) > 30.0
+    both = gh & ch
+    assert both.mean() > 0.02 and np.median(np.abs(gd[both] - cd[both])) < 2e-3

@@ -1,0 +1,120 @@
+"""The port's kernel functions vs the JAX package's Pallas kernels.
+
+On the CPU every wrapper runs its plain PyTorch version; the Pallas
+kernels run in interpret mode, as their own tests run them. The CUDA
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py (marker ``cuda``) and by chip_smoke.py.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from rgbd_recon_tpu.ops import bricks as jbricks
+from rgbd_recon_tpu.ops.bricks_pallas import mark_bricks_pallas
+from rgbd_recon_tpu.ops.preprocess_pallas import bilateral_accum_pallas
+from rgbd_recon_tpu.ops.warp_pallas import warp_screen_pallas
+from rgbd_recon_tpu.utils.math import Bbox as JBbox
+
+from rgbd_recon_torch.ops import bricks
+from rgbd_recon_torch.ops.raymarch_fast import _taps
+from rgbd_recon_torch.ops.preprocess import bilateral_accum
+from rgbd_recon_torch.ops.warp import warp_screen
+from rgbd_recon_torch.utils.math import Bbox
+
+
+def _bilateral_inputs(rng, kk=2, h=48, w=96):
+    depth = (0.6 + 3.0 * rng.random((kk, h, w))).astype(np.float32)
+    depth[rng.random((kk, h, w)) < 0.1] = 0.0      # invalid pixels
+    limits = np.array([[0.5, 4.5], [0.6, 4.0]], np.float32)[:kk]
+    return depth, limits
+
+
+def test_bilateral_accum_matches_pallas(rng):
+    """Tolerance atol 2e-4, rtol 2e-5: the Pallas kernel's own bound
+    against its scan oracle (tests/test_preprocess_pallas.py:41) — the
+    169-tap sums run in another order and the spatial weight is rounded
+    once more on the TPU side."""
+    depth, limits = _bilateral_inputs(rng)
+    want = bilateral_accum_pallas(jnp.asarray(depth), jnp.asarray(limits),
+                                  interpret=True)
+    got = bilateral_accum(torch.from_numpy(depth), torch.from_numpy(limits))
+    for g, wnt, name in zip(got, want, ("depth_bf", "w_acc", "w_range")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=2e-4,
+                                   rtol=2e-5, err_msg=name)
+
+
+def _brick_inputs(rng, n=40_000):
+    bbox = Bbox.default()
+    world = (bbox.min + rng.random((2, n // 2, 3)).astype(np.float32) * bbox.size)
+    # a few points outside the box exercise the index clamp
+    world[0, :50] = bbox.min - 0.3
+    world[1, :50] = bbox.max + 0.3
+    valid = rng.random((2, n // 2)) > 0.3
+    return bbox, world.astype(np.float32), valid
+
+
+def test_mark_bricks_matches_pallas(rng):
+    """Integer-exact (tests/test_bricks_pallas.py:30): a histogram."""
+    bbox, world, valid = _brick_inputs(rng)
+    jgrid = jbricks.make_brick_grid(JBbox(bbox.min, bbox.max), 0.1, 0.01)
+    grid = bricks.make_brick_grid(bbox, 0.1, 0.01)
+    assert tuple(grid.res) == tuple(jgrid.res)
+    want = np.asarray(mark_bricks_pallas(jnp.asarray(world), jnp.asarray(valid),
+                                         jgrid, interpret=True))
+    got = bricks.mark_bricks(torch.from_numpy(world), torch.from_numpy(valid), grid)
+    assert got.dtype == torch.uint32
+    np.testing.assert_array_equal(got.to(torch.int64).numpy(), want.astype(np.int64))
+
+
+def _screen_inputs(rng, ti=128, si=128, c=9, h=96, w=128):
+    img = rng.random((ti, si, c)).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    fy = np.clip(ys * ti / h * (1.0 + 0.1 * xs / w) - 3.0, 0, ti - 1)
+    fx = np.clip(xs * si / w * (1.0 + 0.08 * ys / h) - 2.0, 0, si - 1)
+    return img, fy.astype(np.float32), fx.astype(np.float32)
+
+
+def test_warp_screen_matches_pallas(rng):
+    """p99.5 < 2e-2 and < 2e-3 on the precise channel
+    (tests/test_warp_pallas.py:33-34): the TPU kernel samples through a
+    bf16 matmul (a hi/lo split on channel 1); the port is float32."""
+    img, fy, fx = _screen_inputs(rng)
+    want = np.asarray(warp_screen_pallas(
+        jnp.asarray(img), jnp.asarray(fy), jnp.asarray(fx), tile=(8, 128),
+        precise_channels=(1,), interpret=True))
+    got = warp_screen(torch.from_numpy(img), torch.from_numpy(fy),
+                      torch.from_numpy(fx), (8, 128)).numpy()
+    d = np.abs(got - want)
+    assert np.percentile(d, 99.5) < 2e-2, np.percentile(d, 99.5)
+    assert np.percentile(d[..., 1], 99.5) < 2e-3, np.percentile(d[..., 1], 99.5)
+
+
+def test_warp_screen_window_clamp_matches_pallas(rng):
+    """A tile whose source footprint is wider than its 128-px window: the
+    port clamps to the same window as the TPU kernel (same bound as above),
+    and the clamp really bites (exact bilinear sampling differs by far
+    more)."""
+    ti, si, c, h, w = 64, 512, 3, 8, 128
+    img = rng.random((ti, si, c)).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    fy = np.clip(ys * 2.0 + 10.0, 0, ti - 1).astype(np.float32)
+    fx = np.clip(xs * 3.5 + 5.0, 0, si - 1).astype(np.float32)   # 450-px span
+    want = np.asarray(warp_screen_pallas(
+        jnp.asarray(img), jnp.asarray(fy), jnp.asarray(fx), tile=(8, 128),
+        interpret=True))
+    got = warp_screen(torch.from_numpy(img), torch.from_numpy(fy),
+                      torch.from_numpy(fx), (8, 128)).numpy()
+    d = np.abs(got - want)
+    assert np.percentile(d, 99.5) < 2e-2, np.percentile(d, 99.5)
+    exact = _taps(torch.from_numpy(img), torch.from_numpy(fy),
+                  torch.from_numpy(fx)).numpy()
+    assert np.abs(exact - want).max() > 0.1
+
+
+def test_wrappers_reject_other_devices():
+    """The dispatch rule: CPU -> plain version, CUDA -> kernel, anything
+    else raises (no silent fallback)."""
+    d = torch.zeros((1, 8, 8), device="meta")
+    with pytest.raises(ValueError):
+        bilateral_accum(d, torch.zeros((1, 2), device="meta"))

@@ -1,0 +1,114 @@
+"""The port's leaf ops and hole filling vs their JAX counterparts, on the CPU.
+
+Each case feeds both sides the same numpy inputs from a seeded generator.
+These ops run inside every stage; the stage tests hold them only through
+the stages' outputs, so a fault here would show there as a stage-level
+deviation with no pointer to its cause.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from rgbd_recon_tpu.ops import colors as jcolors
+from rgbd_recon_tpu.ops import inpaint as jinpaint
+from rgbd_recon_tpu.ops import sample as jsample
+from rgbd_recon_tpu.ops import warp as jwarp
+from rgbd_recon_tpu.utils import math as jmath
+
+from rgbd_recon_torch.ops import colors, inpaint, sample, warp
+from rgbd_recon_torch.utils import math as tmath
+
+
+def _rgb_to_lab(rng):
+    rgb = rng.random((64, 48, 3)).astype(np.float32)
+    return (colors.rgb_to_lab(torch.from_numpy(rgb)).numpy(),
+            np.asarray(jcolors.rgb_to_lab(jnp.asarray(rgb))))
+
+
+def _sample2d(rng):
+    img = rng.random((37, 53, 3)).astype(np.float32)
+    # texcoords past both edges exercise the GL clamp
+    uv = (rng.random((20, 30, 2)) * 1.2 - 0.1).astype(np.float32)
+    return (sample.sample2d(torch.from_numpy(img), torch.from_numpy(uv)).numpy(),
+            np.asarray(jsample.sample2d(jnp.asarray(img), jnp.asarray(uv))))
+
+
+def _pixel_texcoords(rng):
+    return (sample.pixel_texcoords(19, 33).numpy(),
+            np.asarray(jsample.pixel_texcoords(19, 33)))
+
+
+def _resize2d_gl(rng):
+    img = rng.random((45, 80, 4)).astype(np.float32)
+    return (warp.resize2d_gl(torch.from_numpy(img), (180, 320)).numpy(),
+            np.asarray(jwarp.resize2d_gl(jnp.asarray(img), (180, 320))))
+
+
+def _pmat(rng):
+    a = rng.standard_normal((50, 4)).astype(np.float32)
+    b = rng.standard_normal((4, 4)).astype(np.float32)
+    return (tmath.pmat(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+            np.asarray(jmath.pmat(jnp.asarray(a), jnp.asarray(b))))
+
+
+# (case, atol, rtol). rgb_to_lab: float32 pow/cbrt of two libraries, LAB
+# values up to ~100. sample2d and pixel_texcoords: the same float32
+# operations in the same order. resize2d_gl: both round weights, input and
+# intermediate to bf16 and accumulate in float32, in another order. pmat:
+# a 4-term float32 dot product, at full precision on both sides.
+CASES = [
+    (_rgb_to_lab, 1e-4, 1e-5),
+    (_sample2d, 1e-6, 0.0),
+    (_pixel_texcoords, 0.0, 0.0),
+    (_resize2d_gl, 1e-5, 0.0),
+    (_pmat, 1e-5, 1e-6),
+]
+
+
+@pytest.mark.parametrize("case, atol, rtol", CASES, ids=[c[0].__name__[1:] for c in CASES])
+def test_leaf_op_matches_jax(case, atol, rtol):
+    got, want = case(np.random.default_rng(11))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
+def _holefill_inputs(rng, h=96, w=128, hole_frac=0.5):
+    """A rendered image with holes, some of them over background (depth 1),
+    as tests/test_inpaint_mm.py makes it."""
+    c = rng.random((h, w, 4)).astype(np.float32)
+    c[..., 3] = (rng.random((h, w)) > hole_frac).astype(np.float32)
+    d = (0.2 + 0.7 * rng.random((h, w))).astype(np.float32)
+    d[rng.random((h, w)) < 0.05] = 1.0
+    return c, d
+
+
+@pytest.mark.parametrize("ref", ["colorfill", "colorfill_mm"])
+def test_holefill_matches_jax(ref):
+    """The port's 16-tap pyramid and per-pixel colorfill vs the JAX package.
+    Against ``colorfill`` (the same formulation): pyramids atol 1e-6, the
+    filled image atol 1e-5 (the LOD upsamples round to bf16 on both sides
+    and sum in another order). Against ``colorfill_mm`` (the TPU form,
+    which resolves the blend on coarser grids; not ported): the bounds of
+    tests/test_inpaint_mm.py:50-61 — non-hole and background pixels
+    exact, filled pixels a median deviation < 0.06 and > 90% under 0.25."""
+    c, d = _holefill_inputs(np.random.default_rng(12))
+    pc, pd = inpaint.build_pyramid(torch.from_numpy(c), torch.from_numpy(d), 5)
+    jpc, jpd = jinpaint.build_pyramid(jnp.asarray(c), jnp.asarray(d), 5, mm=False)
+    got = inpaint.colorfill(pc, pd).numpy()
+    if ref == "colorfill":
+        for a, b in zip(pc + pd, jpc + jpd):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(got, np.asarray(jinpaint.colorfill(jpc, jpd)),
+                                   atol=1e-5, rtol=0)
+        return
+    want = np.asarray(jinpaint.colorfill_mm(jpc, jpd))
+    hole = c[..., 3] <= 0.0
+    bg = hole & (d >= 1.0)
+    np.testing.assert_array_equal(got[~hole], want[~hole])
+    np.testing.assert_array_equal(got[bg], want[bg])
+    fill = hole & ~bg
+    assert fill.any()
+    dv = np.abs(got[fill][:, :3] - want[fill][:, :3])
+    assert np.median(dv) < 0.06, np.median(dv)
+    assert (dv < 0.25).mean() > 0.9, (dv < 0.25).mean()
