@@ -2,33 +2,45 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the checks below
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one frame
+    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one pinhole frame
 
 Phases (any failure raises and the script exits non-zero without printing
 a result line):
 
-1. build   compile the four CUDA kernels from rgbd_recon_torch/csrc with
-           nvcc into rgbd_recon_torch/_build/ (seconds printed);
-2. card    the card's name and power limit from nvidia-smi;
-3. frames  build the bench configuration with the port's own calibration
-           code — 4 Kinect-v2 sensors at 512x424 (pinhole rig), a 256^3
-           TSDF with brick_size 0.1, a 1280x720 render with 6 LODs — and
-           run one warm-up FramePipeline.step (session bakes), recording
-           the arguments each kernel wrapper receives;
-4. kernels every kernel against its plain PyTorch version on those
-           main-path arguments (deviation beside its tolerance; brick
-           marking must match exactly) and both timed with CUDA events;
-5. slice   launch counters set to 0, FramePipeline.step_timed on a few
-           distinct frames, counters read: every kernel must have been
-           launched; outputs finite, coverage > 0, check_capacity passes;
-           per-stage milliseconds printed;
-6. parity  a small frame (3 sensors at 256x212, 128^3, 320x240) through
-           the CUDA path and through the plain path on the CPU: hit masks,
-           colors and depths must agree at the render-parity bounds the
-           repo's tests use.
+1. build      compile the CUDA kernels from rgbd_recon_torch/csrc with nvcc
+              into rgbd_recon_torch/_build/ (seconds printed);
+2. card       the card's name and power limit from nvidia-smi;
+3. pinhole    the bench configuration built with the port's own calibration
+              code — 4 Kinect-v2 sensors at 512x424 (pinhole rig), a 256^3
+              TSDF with brick_size 0.1, a 1280x720 render with 6 LODs. A
+              warm-up FramePipeline.step (session bakes) records the
+              arguments each kernel wrapper receives; kernels 1-4 are held
+              against their plain PyTorch versions on those arguments
+              (deviation beside its tolerance; brick marking exactly) and
+              both timed with CUDA events; then the path: launch counters
+              set to 0, FramePipeline.step_timed on distinct frames,
+              counters read — every kernel of the path must have launched;
+              outputs finite, coverage > 0, check_capacity passes; stage
+              means printed;
+4. distorted  the same at the BENCH_DISTORT=0.004 rig (Kinect-magnitude lens
+              distortion, NNI-like bake warp, offset rgb cameras; fwd_res
+              (128, 256, 128), inv_res 128^3), rig and frames built on the
+              card: the pixel-warp gate's tier log (piecewise, 48 knots),
+              the bake seconds, kernel 5 (piecewise_eval) against its plain
+              version at M=1 and M=5, and the path with kernels 1-5;
+5. block      the pinhole rig at 240^3 (Vx % 128 = 112: the block-major
+              integrator): kernel 6 (integrate_affine) and its path;
+6. table      the pinhole rig at 256^3 with use_affine=False (the dense warp
+              table): kernel 7 (integrate_sparse) and its path;
+7. gather     one small distorted frame with pw_warp_tol below the piecewise
+              residual: the gate must log the exact gather tier;
+8. parity     a small frame (3 sensors at 256x212, 128^3, 320x240) through
+              the CUDA path and through the plain path on the CPU: hit
+              masks, colors and depths must agree at the render-parity
+              bounds the repo's tests use.
 
-The last two lines are a JSON object with one entry per kernel and the
-card's name and power limit; the very last line is the result object.
+The last three lines are a JSON object with one entry per kernel, the
+card's name and power limit, and the result object.
 """
 from __future__ import annotations
 
@@ -41,6 +53,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 NUM_FRAMES = 4
+PINHOLE_FRAMES = 2
+DISTORT = 0.004            # bench.py BENCH_DISTORT: ~4 mm bake deformation
+PATH_KERNELS = ("bilateral_accum", "mark_bricks", "warp_screen")
 
 
 def _fail(msg: str) -> int:
@@ -49,18 +64,26 @@ def _fail(msg: str) -> int:
 
 
 class Recorder:
-    """Wraps a module-level kernel wrapper to keep the arguments of its
-    first call in the warm-up frame (the main path's real inputs)."""
+    """Wraps a module-level function to keep the arguments of its calls in
+    the warm-up frame (the main path's real inputs) and their host-clock
+    seconds (synchronized)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.calls = []
+        self.seconds = []
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
+        import torch
+
         self.calls.append((args, kwargs))
-        return self.fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
@@ -105,21 +128,44 @@ def _profile_frame(pipe, frame, mv, proj, card: str) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def _bench_inputs(num_sensors, width, height, fwd_res, inv_res, seed):
+def _bench_inputs(num_sensors, width, height, fwd_res, inv_res, seed, frames=NUM_FRAMES,
+                  distortion=None, device="cpu"):
+    """The synthetic rig (distorted cameras computing on ``device``) and
+    ``frames`` distinct noisy copies of its rendered sphere-scene frames."""
     import numpy as np
     from rgbd_recon_torch.calibration import synthetic
     from rgbd_recon_torch.utils.math import Bbox
 
     bbox = Bbox.default()
-    rig, cams = synthetic.synthetic_rig(num_sensors=num_sensors, bbox=bbox,
-                                        fwd_res=fwd_res, inv_res=inv_res,
-                                        width=width, height=height)
-    depth, color = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox))
+    built = synthetic.synthetic_rig(num_sensors=num_sensors, bbox=bbox, fwd_res=fwd_res,
+                                    inv_res=inv_res, width=width, height=height,
+                                    distortion=distortion, device=device)
+    rig, cams, ccams = built if distortion is not None else (*built, None)
+    depth, color = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox),
+                                           color_cams=ccams)
     rng = np.random.default_rng(seed)
-    frames = [(depth + rng.uniform(0, 2e-3, depth.shape).astype(np.float32),
-               np.clip(color + rng.uniform(0, 1e-2, color.shape).astype(np.float32), 0, 1))
-              for _ in range(NUM_FRAMES)]
-    return rig, bbox, frames
+    out = [(depth + rng.uniform(0, 2e-3, depth.shape).astype(np.float32),
+            np.clip(color + rng.uniform(0, 1e-2, color.shape).astype(np.float32), 0, 1))
+           for _ in range(frames)]
+    return rig, bbox, out
+
+
+def _bench_config(bbox, n: int, **over):
+    import numpy as np
+    from rgbd_recon_torch.runtime import pipeline as pl
+
+    res = n if isinstance(n, tuple) else (n, n, n)
+    return pl.PipelineConfig(render_width=1280, render_height=720, tsdf_res=res,
+                             voxel_size=float(np.max(bbox.size) / res[0]),
+                             brick_size=0.1, num_lods=6, **over)
+
+
+def _errs(a, b):
+    import torch
+
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs().flatten()
+    k = max(1, int(0.005 * d.numel()))
+    return {"max": float(d.max()), "p995": float(torch.topk(d, k).values.min())}
 
 
 def main() -> int:
@@ -133,10 +179,11 @@ def main() -> int:
     import numpy as np
     from rgbd_recon_torch import native
     from rgbd_recon_torch.ops import bricks, preprocess as pp, raymarch_fast as rmf
-    from rgbd_recon_torch.ops import tsdf_dense, warp as warp_ops
+    from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse, warp as warp_ops
     from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
     from rgbd_recon_torch.runtime import pipeline as pl
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -153,38 +200,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # -- 3. bench frames + warm-up -----------------------------------------
-    t0 = time.perf_counter()
-    rig, bbox, frames = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED)
-    n = 256
-    cfg = pl.PipelineConfig(render_width=1280, render_height=720,
-                            tsdf_res=(n, n, n),
-                            voxel_size=float(np.max(bbox.size) / n),
-                            brick_size=0.1, num_lods=6)
-    print(f"rig + frames: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    pipe = pl.FramePipeline(rig, cfg, device=dev, log=lambda s: print(f"  {s}"))
-    mv, proj = pipe.default_camera()
-    recs = {
-        "bilateral_accum": Recorder(pp, "bilateral_accum"),
-        "mark_bricks": Recorder(bricks, "mark_bricks"),
-        "warp_screen_registration": Recorder(pp, "warp_screen"),
-        "warp_screen_screen": Recorder(rmf, "warp_screen"),
-        "integrate_dense": Recorder(pl, "integrate_dense"),
-    }
-    try:
-        out = pipe.step(*frames[0], mv, proj)
-        torch.cuda.synchronize()
-    finally:
-        for r in recs.values():
-            r.restore()
-    print(f"session bakes + warm-up frame: {time.perf_counter() - t0:.1f} s")
-    for name, r in recs.items():
-        if not r.calls:
-            raise RuntimeError(f"the warm-up frame never reached {name}")
-
-    # -- 4. kernels vs plain versions ---------------------------------------
-    results = {}
+    results = {}      # kernel entry -> measured numbers
+    launches = {}     # kernel -> launches in the run of its own path
 
     def report(name, route_src, replaces, err, tol_txt, ok, kern, plain, reps):
         ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, reps)
@@ -196,19 +213,99 @@ def main() -> int:
         results[name] = dict(source=route_src, replaces=replaces,
                              max_abs_err=err["max"], ms=ms, plain_ms=plain_ms)
 
-    def errs(a, b):
-        d = (a.to(torch.float64) - b.to(torch.float64)).abs().flatten()
-        k = max(1, int(0.005 * d.numel()))
-        return {"max": float(d.max()), "p995": float(torch.topk(d, k).values.min())}
+    def warm_up(label, pipe, frame, mv, proj, wrap):
+        """One step with Recorders on the (module, name) pairs of ``wrap``."""
+        recs = {key: Recorder(mod, name) for key, (mod, name) in wrap.items()}
+        t0 = time.perf_counter()
+        try:
+            pipe.step(*frame, mv, proj)
+            torch.cuda.synchronize()
+        finally:
+            for r in recs.values():
+                r.restore()
+        print(f"{label}: session bakes + warm-up frame: {time.perf_counter() - t0:.1f} s")
+        for key, r in recs.items():
+            if not r.calls:
+                raise RuntimeError(f"the {label} warm-up frame never reached {key}")
+        return recs
+
+    def drive(label, pipe, frames, mv, proj, need, n_frames, res):
+        """The path's run: counters to 0, step_timed over distinct frames,
+        counters read; every kernel of ``need`` must have launched."""
+        for k in native.KERNELS.values():
+            k.launches = 0
+        pipe.timers.reset()
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_frames):
+            outs.append(pipe.step_timed(*frames[i % len(frames)], mv, proj))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_frames
+        counts = {name: k.launches for name, k in native.KERNELS.items()}
+        print(f"{label}: launches during {n_frames} frames: {counts}")
+        missing = [name for name in need if counts[name] == 0]
+        if missing:
+            raise RuntimeError(f"{label}: kernels never launched on the path: {missing}")
+        for name in need:
+            launches.setdefault(name, counts[name])
+        for name in pl.STAGE_TIMERS:
+            t = pipe.timers.timers[name]
+            print(f"{label}: stage {name}: mean {t.mean * 1e3:.3f} ms, min "
+                  f"{t.vmin * 1e3:.3f} ms over {t.count} frames (CUDA events; {card})")
+        print(f"{label}: frame wall time (host clock, step_timed incl. its syncs): "
+              f"{wall * 1e3:.1f} ms")
+        for o in outs:
+            n_occ = pipe.check_capacity(o)
+            assert o.color.shape == (720, 1280, 4) and tuple(o.tsdf.shape) == res[::-1]
+            assert bool(torch.isfinite(o.color).all()) and bool(torch.isfinite(o.depth).all())
+            assert bool(torch.isfinite(o.tsdf.float()).all())
+            cov = float(o.hit.float().mean())
+            assert cov > 0.0, f"{label}: render coverage is 0"
+        print(f"{label}: outputs: occupied bricks {n_occ} / {pipe.max_bricks}, coverage "
+              f"{cov:.4f}, occupied ratio {float(outs[-1].occupied_ratio):.4f}")
+
+    def check_integrator(name, source, replaces, run_kernel, run_plain, limit, reps):
+        """An integration kernel against its plain version at the repo's
+        bound between formulations (tests/test_tsdf_affine.py:109-116)."""
+        vol, cvol = run_kernel()
+        pvol, pcvol = run_plain()
+        v, pv = vol.float(), pvol.float()
+        cdim = 1 if cvol.shape[1] == 4 else -1        # z-major or channels-last color
+        off = float(((v - pv).abs() > 1e-4).float().mean())
+        cd = float(((cvol.float() - pcvol.float()).abs().amax(dim=cdim) > 1e-2).float().mean())
+        occ, pocc = int((v > -limit + 1e-9).sum()), int((pv > -limit + 1e-9).sum())
+        ok = off < 1e-4 and cd < 1e-3 and abs(occ - pocc) <= max(100, 0.002 * pocc) and occ > 0
+        print(f"  {name}: voxels off >1e-4: {off:.2e}, color off >1e-2: {cd:.2e}, "
+              f"occupied voxels {occ} vs {pocc}")
+        report(name, source, replaces, _errs(v, pv),
+               "<1e-4 of voxels off >1e-4, <1e-3 color off >1e-2, occupancy within 0.2%",
+               ok, run_kernel, run_plain, reps)
+
+    # -- 3. pinhole 256^3 ---------------------------------------------------
+    t0 = time.perf_counter()
+    rig, bbox, frames = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED)
+    print(f"pinhole rig + frames: {time.perf_counter() - t0:.1f} s")
+    n = 256
+    cfg = _bench_config(bbox, n)
+    pipe = pl.FramePipeline(rig, cfg, device=dev, log=lambda s: print(f"  {s}"))
+    mv, proj = pipe.default_camera()
+    recs = warm_up("pinhole", pipe, frames[0], mv, proj, {
+        "bilateral_accum": (pp, "bilateral_accum"),
+        "mark_bricks": (bricks, "mark_bricks"),
+        "warp_screen_registration": (pp, "warp_screen"),
+        "warp_screen_screen": (rmf, "warp_screen"),
+        "integrate_dense": (pl, "integrate_dense"),
+    })
 
     # bilateral_accum: the 13x13 accumulators of the 4 x 424 x 512 frame
     (d_in, lim_in), _ = recs["bilateral_accum"].calls[0]
     got = pp.bilateral_accum(d_in, lim_in)
     want = pp.bilateral_accum_plain(d_in, lim_in)
-    e = errs(torch.stack(got), torch.stack(want))
     ok = all(torch.allclose(g, w, atol=2e-4, rtol=2e-5) for g, w in zip(got, want))
     report("bilateral_accum", "rgbd_recon_torch/csrc/bilateral_accum.cu",
-           "rgbd_recon_tpu/ops/preprocess_pallas.py:75", e, "atol 2e-4 rtol 2e-5",
+           "rgbd_recon_tpu/ops/preprocess_pallas.py:75",
+           _errs(torch.stack(got), torch.stack(want)), "atol 2e-4 rtol 2e-5",
            ok, lambda: pp.bilateral_accum(d_in, lim_in),
            lambda: pp.bilateral_accum_plain(d_in, lim_in), 20)
 
@@ -216,9 +313,8 @@ def main() -> int:
     (w_in, v_in, grid), _ = recs["mark_bricks"].calls[0]
     got = bricks.mark_bricks(w_in, v_in, grid).to(torch.int64)
     want = bricks.mark_bricks_plain(w_in, v_in, grid).to(torch.int64)
-    e = errs(got, want)
     report("mark_bricks", "rgbd_recon_torch/csrc/mark_bricks.cu",
-           "rgbd_recon_tpu/ops/bricks_pallas.py:100", e, "exact",
+           "rgbd_recon_tpu/ops/bricks_pallas.py:100", _errs(got, want), "exact",
            bool(torch.equal(got, want)) and int(got.sum()) > 0,
            lambda: bricks.mark_bricks(w_in, v_in, grid),
            lambda: bricks.mark_bricks_plain(w_in, v_in, grid), 20)
@@ -230,75 +326,139 @@ def main() -> int:
         wh, y0, x0 = warp_ops.warp_windows(img.shape[0], img.shape[1], fy, fx, tile)
         got = warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0)
         want = warp_ops.warp_screen_plain(img, fy, fx, tile, wh, y0, x0)
-        e = errs(got, want)
-        ok = bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5))
         report(f"warp_screen[{label} {tuple(img.shape)}->{tuple(fy.shape)}]",
                "rgbd_recon_torch/csrc/warp_screen.cu",
-               "rgbd_recon_tpu/ops/warp_pallas.py:116", e, "atol 1e-5 rtol 1e-5",
-               ok, lambda: warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0),
+               "rgbd_recon_tpu/ops/warp_pallas.py:116", _errs(got, want),
+               "atol 1e-5 rtol 1e-5", bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5)),
+               lambda: warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0),
                lambda: warp_ops.warp_screen_plain(img, fy, fx, tile, wh, y0, x0), 20)
 
     # integrate_dense: the warm-up frame's occupied bricks at 256^3
-    args, kw = recs["integrate_dense"].calls[0]
-    fr, aff, tcfg, m16, maxb, woff, wy, wx, xs, cls = args
-    packed = pack_frames(fr)
+    (fr, aff, tcfg, m16, maxb, woff, wy, wx, xs, cls), _ = recs["integrate_dense"].calls[0]
     idx, _, count = occupied_list(m16, maxb)
-    iargs = (packed, aff.coeffs, idx, count, woff, cls, tcfg.res, wy, wx, xs,
+    iargs = (pack_frames(fr), aff.coeffs, idx, count, woff, cls, tcfg.res, wy, wx, xs,
              float(tcfg.limit))
-    vol, cvol = tsdf_dense.integrate_dense_cuda(*iargs)
+    print(f"  integrate_dense: {int(count)} occupied bricks")
+    check_integrator("integrate_dense", "rgbd_recon_torch/csrc/integrate_dense.cu",
+                     "rgbd_recon_tpu/ops/tsdf_dense.py:452",
+                     lambda: tsdf_dense.integrate_dense_cuda(*iargs),
+                     lambda: tsdf_dense.integrate_dense_plain(*iargs), tcfg.limit, 5)
 
-    def plain_integrate():
-        return tsdf_dense.integrate_dense_plain(*iargs)
-
-    pvol, pcvol = plain_integrate()
-    v, pv = vol.float(), pvol.float()
-    e = errs(v, pv)
-    off = float(((v - pv).abs() > 1e-4).float().mean())
-    cd = float(((cvol.float() - pcvol.float()).abs().amax(dim=1) > 1e-2).float().mean())
-    occ, pocc = int((v > -tcfg.limit + 1e-9).sum()), int((pv > -tcfg.limit + 1e-9).sum())
-    ok = off < 1e-4 and cd < 1e-3 and abs(occ - pocc) <= max(100, 0.002 * pocc) and occ > 0
-    print(f"  integrate_dense: {int(count)} occupied bricks, voxels off >1e-4: {off:.2e}, "
-          f"color off >1e-2: {cd:.2e}, occupied voxels {occ} vs {pocc}")
-    report("integrate_dense", "rgbd_recon_torch/csrc/integrate_dense.cu",
-           "rgbd_recon_tpu/ops/tsdf_dense.py:452", e,
-           "<1e-4 of voxels off >1e-4, <1e-3 color off >1e-2, occupancy within 0.2%",
-           ok, lambda: tsdf_dense.integrate_dense_cuda(*iargs), plain_integrate, 5)
-
-    # -- 5. the slice on the card -------------------------------------------
-    for k in native.KERNELS.values():
-        k.launches = 0
-    pipe.timers.reset()
-    outs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(NUM_FRAMES):
-        outs.append(pipe.step_timed(*frames[i % len(frames)], mv, proj))
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / NUM_FRAMES
-    launches = {name: k.launches for name, k in native.KERNELS.items()}
-    print(f"launches during {NUM_FRAMES} frames: {launches}")
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
-    for name in pl.STAGE_TIMERS:
-        t = pipe.timers.timers[name]
-        print(f"stage {name}: mean {t.mean * 1e3:.3f} ms, min {t.vmin * 1e3:.3f} ms "
-              f"over {t.count} frames (CUDA events; {card})")
-    print(f"frame wall time (host clock, step_timed incl. its syncs): {wall * 1e3:.1f} ms")
-    for o in outs:
-        n_occ = pipe.check_capacity(o)
-        assert o.color.shape == (720, 1280, 4) and o.tsdf.shape == (n, n, n)
-        assert bool(torch.isfinite(o.color).all()) and bool(torch.isfinite(o.depth).all())
-        assert bool(torch.isfinite(o.tsdf.float()).all())
-        cov = float(o.hit.float().mean())
-        assert cov > 0.0, "render coverage is 0"
-    print(f"outputs: occupied bricks {n_occ} / {pipe.max_bricks}, coverage "
-          f"{cov:.4f}, occupied ratio {float(outs[-1].occupied_ratio):.4f}")
+    drive("pinhole", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_dense",),
+          PINHOLE_FRAMES, cfg.tsdf_res)
     if "--profile" in sys.argv[1:]:
         _profile_frame(pipe, frames[1], mv, proj, card)
+    del pipe, recs, iargs, fr, aff, m16, woff, cls
 
-    # -- 6. small-frame parity: CUDA path vs plain path on the CPU ----------
-    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED)
+    # -- 4. distorted rig, 256^3 (the piecewise warp, kernel 5) --------------
+    t0 = time.perf_counter()
+    drig, dbbox, dframes = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
+                                         SEED, distortion=DISTORT, device=dev)
+    print(f"distorted rig + frames (float64 on the card): {time.perf_counter() - t0:.1f} s")
+    logs = []
+
+    def dlog(s):
+        logs.append(s)
+        print(f"  {s}")
+
+    t0 = time.perf_counter()
+    dcfg = _bench_config(dbbox, n)
+    pipe = pl.FramePipeline(drig, dcfg, device=dev, log=dlog)
+    print(f"distorted: affine bake {time.perf_counter() - t0:.1f} s")
+    recs = warm_up("distorted", pipe, dframes[0], mv, proj, {
+        "bake_piecewise_warp": (pl, "bake_piecewise_warp"),
+        "piecewise_eval": (warp_ops, "piecewise_eval"),
+    })
+    print(f"distorted: piecewise warp bake {recs['bake_piecewise_warp'].seconds[0]:.2f} s "
+          f"(host clock, synchronized)")
+    if not any("piecewise warp (48 knots) residual" in s and "gather" not in s for s in logs):
+        raise RuntimeError(f"the distorted rig did not take the piecewise tier: {logs}")
+    if not isinstance(pipe._warp, warp_ops.PiecewiseWarp) or not pipe._dense_emit:
+        raise RuntimeError("the distorted rig is not on the piecewise + dense-emit path")
+
+    # piecewise_eval at its main-path calls: M=1 (xyz) and M=5 (normals)
+    calls = {c[0][0].shape[0]: c[0] for c in recs["piecewise_eval"].calls}
+    for m in (1, 5):
+        D, a, b, r, d_min, d_max = calls[m]
+        dc, cc = warp_ops.knot_coords(D, d_min, d_max, r.shape[2])
+        got = warp_ops.piecewise_eval_cuda(dc, cc, a, b, r)
+        want = warp_ops.piecewise_eval_plain(dc, cc, a, b, r)
+        report(f"piecewise_eval[M={m} {tuple(D.shape)} C={a.shape[-1]} S={r.shape[2]}]",
+               "rgbd_recon_torch/csrc/piecewise_eval.cu",
+               "rgbd_recon_tpu/ops/piecewise_pallas.py:45", _errs(got, want),
+               "bitwise: the same float32 operations, no FMA contraction",
+               bool(torch.equal(got, want)),
+               lambda: warp_ops.piecewise_eval_cuda(dc, cc, a, b, r),
+               lambda: warp_ops.piecewise_eval_plain(dc, cc, a, b, r), 20)
+    drive("distorted", pipe, dframes, mv, proj,
+          PATH_KERNELS + ("integrate_dense", "piecewise_eval"), NUM_FRAMES, dcfg.tsdf_res)
+    del pipe, recs, calls, D, a, b, r, dc, cc, got, want, dframes
+
+    # -- 5. block-major integrator: pinhole rig at 240^3 (kernel 6) ----------
+    bcfg = _bench_config(bbox, 240)
+    pipe = pl.FramePipeline(rig, bcfg, device=dev, log=lambda s: print(f"  {s}"))
+    recs = warm_up("block-major", pipe, frames[0], mv, proj,
+                   {"integrate_affine": (pl, "integrate_affine")})
+    if pipe._dense_emit or pipe.affine is None:
+        raise RuntimeError("the 240^3 volume did not take the block-major integrator")
+    (fr, aff, tcfg, m16, maxb, woff, wy), _ = recs["integrate_affine"].calls[0]
+    idx, _, count = occupied_list(m16, maxb)
+    aargs = (pack_frames(fr), aff.coeffs, idx, count, woff, tcfg.res, wy, float(tcfg.limit))
+    print(f"  integrate_affine: {int(count)} occupied bricks at {tcfg.res}")
+    check_integrator("integrate_affine", "rgbd_recon_torch/csrc/integrate_dense.cu",
+                     "rgbd_recon_tpu/ops/tsdf_persist.py:787",
+                     lambda: tsdf_persist.integrate_affine_cuda(*aargs),
+                     lambda: tsdf_persist.integrate_affine_plain(*aargs), tcfg.limit, 5)
+    drive("block-major", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_affine",),
+          NUM_FRAMES, bcfg.tsdf_res)
+    del pipe, recs, aargs, fr, aff, m16, woff
+
+    # -- 6. table integrator: pinhole rig at 256^3, use_affine=False (kernel 7)
+    tcfg_p = _bench_config(bbox, n, use_affine=False)
+    t0 = time.perf_counter()
+    pipe = pl.FramePipeline(rig, tcfg_p, device=dev, log=lambda s: print(f"  {s}"))
+    torch.cuda.synchronize()
+    print(f"table: warp-table bake {time.perf_counter() - t0:.1f} s "
+          f"({pipe.tables.pos_blocked.numel() * 4 / 1e6:.0f} MB)")
+    recs = warm_up("table", pipe, frames[0], mv, proj,
+                   {"integrate_sparse": (pl, "integrate_sparse")})
+    if pipe.affine is not None:
+        raise RuntimeError("use_affine=False did not take the table integrator")
+    (fr, tables, tcfg, m16, maxb, woff), _ = recs["integrate_sparse"].calls[0]
+    idx, _, count = occupied_list(m16, maxb)
+    sargs = (pack_frames(fr), tables.pos_blocked, idx, count, woff, tcfg.res,
+             float(tcfg.limit))
+    print(f"  integrate_sparse: {int(count)} occupied bricks (no depth-band cull)")
+    check_integrator("integrate_sparse", "rgbd_recon_torch/csrc/integrate_sparse.cu",
+                     "rgbd_recon_tpu/ops/tsdf_pallas.py:437",
+                     lambda: tsdf_sparse.integrate_sparse_cuda(*sargs),
+                     lambda: tsdf_sparse.integrate_sparse_plain(*sargs), tcfg.limit, 5)
+    drive("table", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_sparse",),
+          NUM_FRAMES, tcfg_p.tsdf_res)
+    del pipe, recs, sargs, fr, tables, m16, woff
+    torch.cuda.empty_cache()
+
+    # -- 7. the gather tier, once: a small distorted frame -------------------
+    grig, gbbox, gframes = _bench_inputs(2, 128, 104, (32, 48, 32), (32, 32, 32), SEED,
+                                         frames=1, distortion=DISTORT, device=dev)
+    logs = []
+    gcfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
+                             voxel_size=float(np.max(gbbox.size) / 128),
+                             sweep_res=(256, 256), pw_warp_tol=1e-9)
+    pipe = pl.FramePipeline(grig, gcfg, device=dev, log=logs.append)
+    smv, sproj = pipe.default_camera()
+    o = pipe.step(*gframes[0], smv, sproj)
+    gather_log = [s for s in logs if "using exact gather path" in s]
+    if pipe._warp is not None or not gather_log:
+        raise RuntimeError(f"pw_warp_tol below the residual did not take the gather tier: {logs}")
+    if not (bool(torch.isfinite(o.color).all()) and float(o.hit.float().mean()) > 0.0):
+        raise RuntimeError("the gather tier's frame is not finite or has no coverage")
+    print(f"gather tier: {gather_log[0].strip()}; coverage {float(o.hit.float().mean()):.4f}")
+    del pipe, o
+
+    # -- 8. small-frame parity: CUDA path vs plain path on the CPU ----------
+    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                         frames=1)
     scfg = pl.PipelineConfig(render_width=320, render_height=240,
                              tsdf_res=(128, 128, 128),
                              voxel_size=float(np.max(sbbox.size) / 128),
@@ -322,6 +482,7 @@ def main() -> int:
     if not (hit_agree > 0.995 and psnr > 30.0 and dmed < 2e-3 and gh.mean() > 0.02):
         raise RuntimeError("the CUDA path disagrees with the plain path on the small frame")
 
+    print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name.split("[")[0]], "max_abs_err": r["max_abs_err"],

@@ -68,22 +68,27 @@ def build_rig(
 
 class DeviceRig(NamedTuple):
     """The rig fields the per-frame stages read, as tensors on the
-    pipeline's device (the cv volumes stay on the host: with the pixel warp
-    baked, only the session bakes read them)."""
+    pipeline's device. The forward cv volumes come along only for the
+    gather tier (no pixel warp baked); otherwise only the session bakes
+    read them, on the host copy."""
 
     depth_limits: torch.Tensor      # f32[K, 2]
     camera_positions: torch.Tensor  # f32[K, 3]
     bbox_min: torch.Tensor          # f32[3]
     bbox_max: torch.Tensor          # f32[3]
+    cv_xyz: torch.Tensor | None = None   # f32[K, Dz, Dy, Dx, 3]
+    cv_uv: torch.Tensor | None = None    # f32[K, Dz, Dy, Dx, 2]
 
     @property
     def num_sensors(self) -> int:
         return self.depth_limits.shape[0]
 
 
-def device_rig(rig: RigCalibration, device) -> DeviceRig:
+def device_rig(rig: RigCalibration, device, volumes: bool = False) -> DeviceRig:
+    """``volumes``: also carry cv_xyz / cv_uv (the gather tier)."""
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    vols = (t(rig.cv_xyz), t(rig.cv_uv)) if volumes else (None, None)
     return DeviceRig(t(rig.depth_limits), t(rig.camera_positions),
-                     t(rig.bbox_min), t(rig.bbox_max))
+                     t(rig.bbox_min), t(rig.bbox_max), *vols)

@@ -1,10 +1,13 @@
-"""Synthetic calibrated pinhole rig + analytic test scenes (mirrors
+"""Synthetic calibrated rigs + analytic test scenes (mirrors
 ``rgbd_recon_tpu/calibration/synthetic.py``).
 
-A numpy copy of what ``synthetic_rig``, ``make_scene`` and
-``render_frames`` reach for pinhole rigs, so the port can build the bench
-rig and frames on a machine without JAX. The lens-distorted cameras
-(``DistortedCamera``) are not copied: the port rejects distorted rigs.
+What ``synthetic_rig``, ``make_scene`` and ``render_frames`` reach, so the
+port can build the bench rigs and frames on a machine without JAX. The
+pinhole camera is the numpy original. The lens-distorted camera
+(``DistortedCamera``) runs on float64 torch tensors on an explicit
+``device``: its undistort / unwarp fixed points over the bench's 4.2M-point
+calibration grids and the SDF depth march (296 unprojects per pixel) cost
+~20 min in host numpy, seconds on the card.
 
 Kinect depth convention: depth = camera-space z (not ray length); the depth
 axis of the lookup volumes is normalized d_norm = (z - near) / (far - near).
@@ -14,10 +17,16 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 from ..utils.math import Bbox, look_at
 from .volume import CalibrationVolume
 from .rig import build_rig
+
+
+def _host(x) -> np.ndarray:
+    """numpy view of a tensor (copied to the host) or array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class PinholeCamera(NamedTuple):
@@ -61,6 +70,111 @@ class PinholeCamera(NamedTuple):
         return u, v, z
 
 
+class DistortedCamera(NamedTuple):
+    """Non-pinhole camera: Brown-Conrady lens distortion + a smooth
+    low-frequency world-space deformation emulating the NNI-interpolated
+    calibration bake of real rigs (KinectCalibrationFile.cpp:148-580).
+
+    Duck-types PinholeCamera's interface; ``project`` / ``unproject`` take
+    arrays or tensors and return float64 tensors on ``device``. Same
+    operations, iteration counts and early exit as the numpy original."""
+
+    base: PinholeCamera
+    k1: float = 0.0
+    k2: float = 0.0
+    k3: float = 0.0
+    p1: float = 0.0
+    p2: float = 0.0
+    warp_amp: float = 0.0              # meters
+    warp_freq: tuple = (2.1, 1.7, 2.6)   # rad/m per axis
+    warp_phase: tuple = (0.3, 1.1, 2.0)
+    device: str = "cpu"
+
+    width = property(lambda self: self.base.width)
+    height = property(lambda self: self.base.height)
+    near = property(lambda self: self.base.near)
+    far = property(lambda self: self.base.far)
+    rot = property(lambda self: self.base.rot)
+    trans = property(lambda self: self.base.trans)
+    fx = property(lambda self: self.base.fx)
+    fy = property(lambda self: self.base.fy)
+    cx = property(lambda self: self.base.cx)
+    cy = property(lambda self: self.base.cy)
+    position = property(lambda self: self.base.position)
+
+    def _t(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float64, device=self.device)
+
+    def _distort(self, x, y):
+        r2 = x * x + y * y
+        f = 1.0 + r2 * (self.k1 + r2 * (self.k2 + r2 * self.k3))
+        xd = x * f + 2.0 * self.p1 * x * y + self.p2 * (r2 + 2.0 * x * x)
+        yd = y * f + self.p1 * (r2 + 2.0 * y * y) + 2.0 * self.p2 * x * y
+        return xd, yd
+
+    def _undistort(self, xd, yd, iters: int = 100):
+        # fixed point to machine precision with an early exit (one host
+        # sync per round)
+        x, y = xd.clone(), yd.clone()
+        for _ in range(iters):
+            r2 = x * x + y * y
+            f = 1.0 + r2 * (self.k1 + r2 * (self.k2 + r2 * self.k3))
+            dx = 2.0 * self.p1 * x * y + self.p2 * (r2 + 2.0 * x * x)
+            dy = self.p1 * (r2 + 2.0 * y * y) + 2.0 * self.p2 * x * y
+            xn = (xd - dx) / f
+            yn = (yd - dy) / f
+            step = float(torch.maximum((xn - x).abs().max(), (yn - y).abs().max()))
+            x, y = xn, yn
+            if step < 1e-14:
+                break
+        return x, y
+
+    def _warp_field(self, p):
+        """Smooth world-space displacement (the NNI-bake emulation)."""
+        if self.warp_amp == 0.0:
+            return torch.zeros_like(p)
+        fr, ph = self.warp_freq, self.warp_phase
+        s = torch.stack([
+            torch.sin(fr[0] * p[..., 1] + fr[1] * p[..., 2] + ph[0]),
+            torch.sin(fr[1] * p[..., 2] + fr[2] * p[..., 0] + ph[1]),
+            torch.sin(fr[2] * p[..., 0] + fr[0] * p[..., 1] + ph[2]),
+        ], dim=-1)
+        return self.warp_amp * s
+
+    def _unwarp(self, q, iters: int = 15):
+        p = q.clone()
+        for _ in range(iters):
+            p = q - self._warp_field(p)
+        return p
+
+    def project(self, p_world):
+        w = self._t(p_world)
+        w = w + self._warp_field(w)
+        cam = w @ self._t(self.base.rot).T + self._t(self.base.trans)
+        z = cam[..., 2]
+        zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+        xd, yd = self._distort(cam[..., 0] / zs, cam[..., 1] / zs)
+        u = (xd * self.base.fx + self.base.cx) / self.base.width
+        v = (yd * self.base.fy + self.base.cy) / self.base.height
+        return u, v, z
+
+    def unproject(self, u, v, z) -> torch.Tensor:
+        xd = (self._t(u) * self.base.width - self.base.cx) / self.base.fx
+        yd = (self._t(v) * self.base.height - self.base.cy) / self.base.fy
+        x, y = self._undistort(xd, yd)
+        zb = self._t(z)
+        cam = torch.stack(torch.broadcast_tensors(x * zb, y * zb, zb), dim=-1)
+        world = (cam - self._t(self.base.trans)) @ self._t(self.base.rot)
+        return self._unwarp(world)
+
+
+def kinect_distortion(cam: PinholeCamera, warp_amp: float = 0.004,
+                      device: str = "cpu") -> DistortedCamera:
+    """Wrap with Kinect-v2-magnitude lens distortion (typical factory
+    IR-camera coefficients) + a ~4 mm NNI-like bake deformation."""
+    return DistortedCamera(base=cam, k1=0.09, k2=-0.27, k3=0.09, p1=6e-4,
+                           p2=-4e-4, warp_amp=warp_amp, device=device)
+
 
 def make_cameras(
     num: int,
@@ -102,7 +216,8 @@ def bake_forward_volumes(cam, res=(128, 256, 128), color_cam=None):
     """cv_xyz + cv_uv on the (u, v, d_norm) grid, like the reference's offline
     bake output (CalibVolumes.cpp:19 uses 128x256x128). Grid points sit on
     texel centers so GL-LINEAR sampling reconstructs the analytic model.
-    ``color_cam``: the rgb camera for cv_uv (defaults to the depth camera)."""
+    ``color_cam``: the rgb camera for cv_uv (defaults to the depth camera;
+    distorted rigs pass an offset camera)."""
     rx, ry, rz = res
     u = (np.arange(rx, dtype=np.float64) + 0.5) / rx
     v = (np.arange(ry, dtype=np.float64) + 0.5) / ry
@@ -114,12 +229,12 @@ def bake_forward_volumes(cam, res=(128, 256, 128), color_cam=None):
     cv_xyz = CalibrationVolume(
         np.array([rx, ry, rz], np.uint32),
         np.array([cam.near, cam.far], np.float32),
-        world.astype(np.float32),
+        _host(world).astype(np.float32),
     )
     cv_uv = CalibrationVolume(
         np.array([rx, ry, rz], np.uint32),
         np.array([cam.near, cam.far], np.float32),
-        np.stack([cu, cv_], axis=-1).astype(np.float32),
+        np.stack([_host(cu), _host(cv_)], axis=-1).astype(np.float32),
     )
     return cv_xyz, cv_uv
 
@@ -136,7 +251,7 @@ def bake_inverse_volume(cam, bbox: Bbox, res=(128, 128, 128)):
     zs = start[2] + size[2] / rz * np.arange(rz)
     zz, yy, xx = np.meshgrid(zs, ys, xs, indexing="ij")
     world = np.stack([xx, yy, zz], axis=-1)
-    u, v, z = cam.project(world)
+    u, v, z = (_host(a) for a in cam.project(world))
     d_norm = (z - cam.near) / (cam.far - cam.near)
     valid = (
         (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
@@ -151,6 +266,21 @@ def bake_inverse_volume(cam, bbox: Bbox, res=(128, 128, 128)):
     )
 
 
+def _offset_color_cam(cam: PinholeCamera) -> PinholeCamera:
+    """Rgb camera a few cm / ~0.6 deg off the depth camera (real Kinects
+    have distinct IR and RGB sensors, KinectCalibrationFile.cpp:231-254)."""
+    ang = 0.01
+    rd = np.array(
+        [[np.cos(ang), 0.0, np.sin(ang)],
+         [0.0, 1.0, 0.0],
+         [-np.sin(ang), 0.0, np.cos(ang)]], np.float64
+    )
+    return cam._replace(
+        rot=(rd @ cam.rot).astype(np.float32),
+        trans=(rd @ cam.trans + np.array([-0.052, 0.002, 0.004])).astype(np.float32),
+    )
+
+
 def synthetic_rig(
     num_sensors: int = 4,
     bbox: Bbox | None = None,
@@ -158,13 +288,30 @@ def synthetic_rig(
     inv_res=(96, 96, 96),
     width: int = 512,
     height: int = 424,
+    distortion: float | None = None,
+    device: str = "cpu",
 ):
-    """Synthetic calibrated pinhole rig. Returns (rig, depth_cams)."""
+    """Synthetic calibrated rig. ``distortion=None``: exact pinholes,
+    returns (rig, depth_cams). ``distortion=warp_amp`` (meters, e.g.
+    0.004): Kinect-magnitude lens distortion + an NNI-like world
+    deformation of that amplitude + offset rgb cameras, returns (rig,
+    depth_cams, color_cams); the distorted cameras compute on ``device``."""
     bbox = bbox or Bbox.default()
     cams = make_cameras(num_sensors, bbox, width=width, height=height)
+    color_cams = None
+    if distortion is not None:
+        cams = [kinect_distortion(c, warp_amp=distortion, device=device) for c in cams]
+        color_cams = [
+            DistortedCamera(
+                base=_offset_color_cam(c.base), k1=0.05, k2=-0.16, k3=0.05,
+                p1=4e-4, p2=3e-4, warp_amp=c.warp_amp, warp_freq=c.warp_freq,
+                warp_phase=c.warp_phase, device=device)
+            for c in cams
+        ]
     xyz, uv, inv = [], [], []
-    for cam in cams:
-        a, b = bake_forward_volumes(cam, fwd_res)
+    for i, cam in enumerate(cams):
+        a, b = bake_forward_volumes(
+            cam, fwd_res, color_cam=color_cams[i] if color_cams else None)
         xyz.append(a)
         uv.append(b)
         inv.append(bake_inverse_volume(cam, bbox, inv_res))
@@ -174,6 +321,8 @@ def synthetic_rig(
     rig = rig._replace(
         camera_positions=np.stack([c.position for c in cams]).astype(np.float32)
     )
+    if distortion is not None:
+        return rig, cams, color_cams
     return rig, cams
 
 
@@ -196,7 +345,11 @@ class SphereScene(NamedTuple):
             colors=np.array([[0.85, 0.35, 0.25], [0.25, 0.55, 0.85]], np.float32),
         )
 
-    def sdf(self, p: np.ndarray) -> np.ndarray:
+    def sdf(self, p):
+        if isinstance(p, torch.Tensor):
+            c = torch.as_tensor(self.centers, dtype=p.dtype, device=p.device)
+            r = torch.as_tensor(self.radii, dtype=p.dtype, device=p.device)
+            return (torch.linalg.vector_norm(p[..., None, :] - c, dim=-1) - r).amin(dim=-1)
         d = np.linalg.norm(p[..., None, :] - self.centers, axis=-1) - self.radii
         return d.min(axis=-1)
 
@@ -316,33 +469,45 @@ def _render_depth_general(cam, scene: SphereScene) -> np.ndarray:
     """Depth for ANY camera exposing unproject (curved rays included):
     per pixel, the smallest z in [near, far] with sdf(unproject(u,v,z))=0 —
     coarse march + bisection, so the depth maps stay exactly consistent
-    with the calibration volumes baked from the same model."""
+    with the calibration volumes baked from the same model. Float64
+    tensors on the camera's device (a distorted camera's own; the CPU for
+    a pinhole camera, whose numpy unproject then runs on the same values)."""
+    dev = cam.device if isinstance(cam, DistortedCamera) else "cpu"
     h, w = cam.height, cam.width
-    u = (np.arange(w, dtype=np.float64) + 0.5) / w
-    v = (np.arange(h, dtype=np.float64) + 0.5) / h
-    uu, vv = np.meshgrid(u, v, indexing="xy")
+    u = (torch.arange(w, dtype=torch.float64, device=dev) + 0.5) / w
+    v = (torch.arange(h, dtype=torch.float64, device=dev) + 0.5) / h
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+
+    def sdf_at(z):
+        if isinstance(cam, DistortedCamera):
+            p = cam.unproject(uu, vv, z)
+        else:
+            p = torch.as_tensor(cam.unproject(uu.numpy(), vv.numpy(), z.numpy()))
+        if isinstance(scene, SphereScene):
+            return scene.sdf(p)
+        return torch.as_tensor(scene.sdf(_host(p)), device=dev)
 
     n_coarse = 256
     zs = np.linspace(cam.near, cam.far, n_coarse)
-    prev_s = scene.sdf(cam.unproject(uu, vv, np.full_like(uu, zs[0])))
-    z_lo = np.full((h, w), np.nan)
-    z_hi = np.full((h, w), np.nan)
+    prev_s = sdf_at(torch.full_like(uu, zs[0]))
+    z_lo = torch.full((h, w), float("nan"), dtype=torch.float64, device=dev)
+    z_hi = z_lo.clone()
     for zk in zs[1:]:
-        s = scene.sdf(cam.unproject(uu, vv, np.full_like(uu, zk)))
-        crossing = (prev_s > 0) & (s <= 0) & np.isnan(z_lo)
-        z_lo = np.where(crossing, zk - (zs[1] - zs[0]), z_lo)
-        z_hi = np.where(crossing, zk, z_hi)
+        s = sdf_at(torch.full_like(uu, zk))
+        crossing = (prev_s > 0) & (s <= 0) & torch.isnan(z_lo)
+        z_lo = torch.where(crossing, zk - (zs[1] - zs[0]), z_lo)
+        z_hi = torch.where(crossing, zk, z_hi)
         prev_s = s
-    hit = ~np.isnan(z_lo)
-    z_lo = np.where(hit, z_lo, cam.near)
-    z_hi = np.where(hit, z_hi, cam.far)
+    hit = ~torch.isnan(z_lo)
+    z_lo = torch.where(hit, z_lo, cam.near)
+    z_hi = torch.where(hit, z_hi, cam.far)
     for _ in range(40):
         zm = 0.5 * (z_lo + z_hi)
-        sm = scene.sdf(cam.unproject(uu, vv, zm))
-        z_hi = np.where(sm <= 0, zm, z_hi)
-        z_lo = np.where(sm <= 0, z_lo, zm)
+        sm = sdf_at(zm)
+        z_hi = torch.where(sm <= 0, zm, z_hi)
+        z_lo = torch.where(sm <= 0, z_lo, zm)
     z = 0.5 * (z_lo + z_hi)
-    return np.where(hit, z, 0.0).astype(np.float32)
+    return _host(torch.where(hit, z, 0.0).to(torch.float32))
 
 
 def render_depth(cam, scene) -> np.ndarray:
@@ -350,7 +515,7 @@ def render_depth(cam, scene) -> np.ndarray:
     first surface hit; 0 where no hit, mimicking invalid Kinect pixels).
     SphereScene + pinhole uses the closed-form ray-sphere path; any other
     (scene, camera) combination goes through the generic SDF marcher."""
-    if not isinstance(scene, SphereScene):
+    if isinstance(cam, DistortedCamera) or not isinstance(scene, SphereScene):
         return _render_depth_general(cam, scene)
     h, w = cam.height, cam.width
     u = (np.arange(w, dtype=np.float64) + 0.5) / w
@@ -386,7 +551,7 @@ def render_color(cam, scene) -> np.ndarray:
     u = (np.arange(w, dtype=np.float64) + 0.5) / w
     v = (np.arange(h, dtype=np.float64) + 0.5) / h
     uu, vv = np.meshgrid(u, v, indexing="xy")
-    world = cam.unproject(uu, vv, np.where(depth > 0, depth, 1.0))
+    world = _host(cam.unproject(uu, vv, np.where(depth > 0, depth, 1.0)))
     if isinstance(scene, SphereScene):
         dist = np.linalg.norm(world[..., None, :] - scene.centers, axis=-1) - scene.radii
         idx = np.argmin(dist, axis=-1)
@@ -408,8 +573,8 @@ def render_color(cam, scene) -> np.ndarray:
 
 def render_frames(cams: Sequence, scene: SphereScene, color_cams=None):
     """Stacked per-sensor frames: depth f32[K, H, W] (meters), color
-    f32[K, H, W, 3] in [0, 1]. ``color_cams``: render color from separate
-    rgb cameras when they differ from the depth cameras."""
+    f32[K, H, W, 3] in [0, 1]. ``color_cams``: render color from the rgb
+    cameras when they differ from the depth cameras (distorted rigs)."""
     depth = np.stack([render_depth(c, scene) for c in cams])
     color = np.stack(
         [render_color(c, scene) for c in (color_cams or cams)]

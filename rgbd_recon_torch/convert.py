@@ -1,9 +1,9 @@
 """Carry state of the JAX package over to the port.
 
 ``from_jax(obj, device)`` turns a JAX-side ``RigCalibration``,
-``PixelWarp``, ``AffineTables``, ``CullBake``, ``ProcessedFrames`` or a bare
-array (e.g. ``win_off``) into the port's counterpart, via numpy, on
-``device``. It lets a test feed both implementations the same bakes and
+``PixelWarp``, ``PiecewiseWarp``, ``AffineTables``, ``IntegrationTables``,
+``CullBake``, ``ProcessedFrames`` or a bare array (e.g. ``win_off``) into
+the port's counterpart, via numpy, on ``device``. It lets a test feed both implementations the same bakes and
 hold each stage alone. It imports nothing of JAX (the JAX arrays are read
 through ``numpy.asarray``) and the port's runtime never calls it.
 """
@@ -15,11 +15,15 @@ import torch
 from .calibration.rig import RigCalibration
 from .ops.preprocess import ProcessedFrames
 from .ops.tsdf_affine import AffineTables, CullBake
-from .ops.warp import PixelWarp
+from .ops.tsdf_fast import IntegrationTables
+from .ops.warp import PiecewiseWarp, PixelWarp
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), device=device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: carried over through float32
+        return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.as_tensor(a, device=device)
 
 
 def from_jax(obj, device: torch.device | str = "cpu"):
@@ -32,9 +36,16 @@ def from_jax(obj, device: torch.device | str = "cpu"):
             *(_tensor(getattr(obj, f), device) for f in ("xyz_a", "xyz_b", "uv_a", "uv_b")),
             float(obj.d_min), float(obj.d_max),
             float(obj.max_err_xyz), float(obj.max_err_uv))
-    if name in ("AffineTables", "CullBake", "ProcessedFrames"):
+    if name == "PiecewiseWarp":
+        return PiecewiseWarp(
+            *(_tensor(getattr(obj, f), device)
+              for f in ("xyz_a", "xyz_b", "uv_a", "uv_b", "xyz_r", "uv_r")),
+            float(obj.d_min), float(obj.d_max),
+            float(obj.max_err_xyz), float(obj.max_err_uv))
+    if name in ("AffineTables", "CullBake", "ProcessedFrames", "IntegrationTables"):
         cls = {"AffineTables": AffineTables, "CullBake": CullBake,
-               "ProcessedFrames": ProcessedFrames}[name]
+               "ProcessedFrames": ProcessedFrames,
+               "IntegrationTables": IntegrationTables}[name]
         return cls(*(_tensor(getattr(obj, f), device) for f in cls._fields))
     if hasattr(obj, "__array__"):
         return _tensor(obj, device)

@@ -1,8 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The kernels live in ``csrc/*.cu`` with a plain C interface. At first use
-they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``_build/`` (listed in ``.gitignore``; the file name carries
+they are compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
+source side by side, and linked into one shared library under ``_build/`` (listed in ``.gitignore``; the file name carries
 a hash of the sources, so an edited source rebuilds) and loaded with
 ``ctypes``. Nothing here runs at import time: CPU-only installs import the
 package freely and never reach ``nvcc``.
@@ -28,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 P = ctypes.c_void_p
@@ -64,24 +64,37 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"librgbd_kernels-{digest.hexdigest()[:12]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for cmd, (out, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> tuple[str, float]:
     """Compile the kernels if the library for the current sources is
-    missing. Returns (library path, seconds spent compiling; 0 if cached)."""
+    missing: one nvcc per source, all at once, then one link. Returns
+    (library path, seconds spent compiling; 0 if cached)."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = []
+        cmds = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            objs.append(os.path.join(tmp, os.path.basename(src) + ".o"))
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], src])
+        _run_all(cmds)
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)   # atomic: a concurrent loader never sees half a file
     return path, time.perf_counter() - t0
 
 

@@ -12,11 +12,14 @@ edge-clamped stencils:
   normals   pre_normal.fs    central-difference world-space normals
   quality   pre_quality.fs   per-pixel fusion weight
 
-The calibration lookups go through the baked ``PixelWarp``; the gather
-oracle of the JAX package (``warp=None``) is not ported. Two hand-written
-kernels run here: ``bilateral_accum`` (the port of
-``preprocess_pallas.bilateral_accum_pallas``, ``csrc/bilateral_accum.cu``)
-and the color registration through ``warp.warp_screen``.
+The calibration lookups go through the baked pixel warp (affine
+``PixelWarp`` or ``PiecewiseWarp``, kernel 5 on the card) or, with
+``warp=None``, the exact per-pixel gather of the cv volumes (``sample3d``,
+the gather tier). Besides kernel 5 two hand-written kernels run here:
+``bilateral_accum`` (the port of ``preprocess_pallas.bilateral_accum_pallas``,
+``csrc/bilateral_accum.cu``) and the color registration through
+``warp.warp_screen`` (warp tiers; the gather tier registers color with
+exact per-pixel taps, as the JAX package does).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import torch
 
 from .. import native
 from .colors import rgb_to_lab
-from .sample import sample2d
-from .warp import PixelWarp, warp_screen
+from .sample import pixel_texcoords, sample2d, sample3d
+from .warp import warp_screen
 
 MIN_DEPTH_M = 0.5
 MAX_DEPTH_M = 4.5
@@ -146,23 +149,41 @@ def registration_tile(h: int, w: int, hc: int, wc: int):
     )
 
 
-def bilateral_lab(depth_m, color, rig, cfg: PreprocessConfig, warp: PixelWarp):
+def _sample_cv_per_pixel(cv: torch.Tensor, d_norm: torch.Tensor,
+                         uv: torch.Tensor) -> torch.Tensor:
+    """Sample stacked cv volumes [K, Dz, Dy, Dx, C] at each pixel's (u, v,
+    d_norm): d_norm [K, H, W], uv the [H, W, 2] texcoord grid -> [K, H, W, C]."""
+    return torch.stack([
+        sample3d(cv[k], torch.cat([uv, d_norm[k][..., None]], dim=-1))
+        for k in range(cv.shape[0])
+    ])
+
+
+def bilateral_lab(depth_m, color, rig, cfg: PreprocessConfig, warp):
     """pre_depth.fs main: (depth2 [K,H,W,2] = (depth_norm, w_range/n),
-    color_lab [K,H,W,3], color_registered [K,H,W,3])."""
+    color_lab [K,H,W,3], color_registered [K,H,W,3]). ``warp`` None: the
+    gather tier (``rig`` carries the cv volumes)."""
     kk, h, w = depth_m.shape
+    uv = pixel_texcoords(h, w, depth_m.device)
     cv_min = rig.depth_limits[:, 0][:, None, None]
     cv_max = rig.depth_limits[:, 1][:, None, None]
     depth_norm = (depth_m - cv_min) / (cv_max - cv_min)
-    pos_world = warp.xyz(depth_norm)
+    if warp is not None:
+        pos_world = warp.xyz(depth_norm)
+    else:
+        pos_world = _sample_cv_per_pixel(rig.cv_xyz, depth_norm, uv)
     in_box = ((pos_world >= rig.bbox_min).all(dim=-1)
               & (pos_world <= rig.bbox_max).all(dim=-1))
 
     d_for_color = torch.where((depth_norm <= 0.0) | (depth_norm >= 1.0), 1.0,
                               depth_norm)
     hc, wc = color.shape[1], color.shape[2]
-    coords_c = warp.uv(d_for_color)
+    if warp is not None:
+        coords_c = warp.uv(d_for_color)
+    else:
+        coords_c = _sample_cv_per_pixel(rig.cv_uv, d_for_color, uv)
     tile = registration_tile(h, w, hc, wc)
-    if tile is not None:
+    if warp is not None and tile is not None:
         fx = torch.clamp(coords_c[..., 0] * wc - 0.5, 0.0, wc - 1.0)
         fy = torch.clamp(coords_c[..., 1] * hc - 0.5, 0.0, hc - 1.0)
         color_rgb = torch.stack([
@@ -171,7 +192,7 @@ def bilateral_lab(depth_m, color, rig, cfg: PreprocessConfig, warp: PixelWarp):
             for k in range(kk)
         ])
     else:
-        # no tile fits (small or odd sensor sizes): exact per-pixel taps
+        # gather tier, or no tile fits: exact per-pixel taps
         color_rgb = torch.stack([sample2d(color[k], coords_c[k]) for k in range(kk)])
     color_lab = rgb_to_lab(color_rgb)
 
@@ -228,7 +249,7 @@ def boundary(depth2: torch.Tensor, color_lab: torch.Tensor,
     return torch.stack([out_x, out_y], dim=-1), silhouette
 
 
-def normals(depth_b: torch.Tensor, warp: PixelWarp):
+def normals(depth_b: torch.Tensor, rig, warp):
     """pre_normal.fs: (normals [K,H,W,3], world_pos [K,H,W,3], valid)."""
     dn = depth_b[..., 0]
     _, h, w = dn.shape
@@ -239,8 +260,22 @@ def normals(depth_b: torch.Tensor, warp: PixelWarp):
         s = _shifted(pad, dyy, dxx, h, w, 1)
         return torch.where((s <= 0.0) | (s >= 1.0), dn, s)
 
-    world_c, world_t, world_b, world_l, world_r = warp.xyz_neighborhood(
-        dn, neighbor(1, 0), neighbor(-1, 0), neighbor(0, -1), neighbor(0, 1))
+    d_t, d_b, d_l, d_r = neighbor(1, 0), neighbor(-1, 0), neighbor(0, -1), neighbor(0, 1)
+    if warp is not None:
+        world_c, world_t, world_b, world_l, world_r = warp.xyz_neighborhood(
+            dn, d_t, d_b, d_l, d_r)
+    else:
+        # one-pixel texcoord shifts, sampled exactly (GL clamps the edges)
+        uv = pixel_texcoords(h, w, dn.device)
+
+        def shifted(sy, sx):
+            return uv + torch.tensor([sx / w, sy / h], dtype=torch.float32, device=dn.device)
+
+        world_c = _sample_cv_per_pixel(rig.cv_xyz, dn, uv)
+        world_t = _sample_cv_per_pixel(rig.cv_xyz, d_t, shifted(1.0, 0.0))
+        world_b = _sample_cv_per_pixel(rig.cv_xyz, d_b, shifted(-1.0, 0.0))
+        world_l = _sample_cv_per_pixel(rig.cv_xyz, d_l, shifted(0.0, -1.0))
+        world_r = _sample_cv_per_pixel(rig.cv_xyz, d_r, shifted(0.0, 1.0))
     n = torch.linalg.cross(world_b - world_t, world_l - world_r, dim=-1)
     norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
     n = n / torch.where(norm < 1e-20, 1.0, norm)
@@ -248,8 +283,7 @@ def normals(depth_b: torch.Tensor, warp: PixelWarp):
     return n, world_c, ~outside
 
 
-def quality(depth_b: torch.Tensor, normal_map: torch.Tensor, rig,
-            warp: PixelWarp) -> torch.Tensor:
+def quality(depth_b: torch.Tensor, normal_map: torch.Tensor, rig, warp) -> torch.Tensor:
     """pre_quality.fs: (1-border_frac)^6 * (w_range/n)^6 / (6.5*d) * angle^2."""
     dn = depth_b[..., 0]
     _, h, w = dn.shape
@@ -272,7 +306,10 @@ def quality(depth_b: torch.Tensor, normal_map: torch.Tensor, rig,
     lateral_q = 1.0 - border / n_samples
     strong = lateral_q ** 6 * (w_range / n_samples) ** 6
     strong = strong / torch.clamp(dn * 6.5, min=1e-20)
-    world_pos = warp.xyz(dn)
+    if warp is not None:
+        world_pos = warp.xyz(dn)
+    else:
+        world_pos = _sample_cv_per_pixel(rig.cv_xyz, dn, pixel_texcoords(h, w, dn.device))
     to_cam = rig.camera_positions[:, None, None, :] - world_pos
     to_cam = to_cam / torch.clamp(
         torch.linalg.vector_norm(to_cam, dim=-1, keepdim=True), min=1e-20)
@@ -298,18 +335,20 @@ class ProcessedFrames(NamedTuple):
 
 
 def preprocess(depth_m: torch.Tensor, color: torch.Tensor, rig,
-               cfg: PreprocessConfig, warp: PixelWarp) -> ProcessedFrames:
+               cfg: PreprocessConfig, warp) -> ProcessedFrames:
     """Full preprocessing chain (NetKinectArray::processTextures order).
-    ``rig``: a DeviceRig; ``color`` f32 in [0, 1] or u8."""
-    if warp is None:
-        raise ValueError("the port's preprocessing needs a baked PixelWarp")
+    ``rig``: a DeviceRig; ``color`` f32 in [0, 1] or u8; ``warp``: the
+    baked PixelWarp or PiecewiseWarp, or None for the gather tier (then
+    ``rig`` must carry the cv volumes)."""
+    if warp is None and rig.cv_xyz is None:
+        raise ValueError("the gather tier needs a DeviceRig with the cv volumes")
     if color.dtype == torch.uint8:
         color = color.to(torch.float32) / 255.0
     morphed = morph_dilate(depth_m)
     feed = morphed if cfg.use_processed_depth else depth_m
     depth2, color_lab, color_reg = bilateral_lab(feed, color, rig, cfg, warp)
     depth_b, sil = boundary(depth2, color_lab, cfg)
-    nrm, world, world_valid = normals(depth_b, warp)
+    nrm, world, world_valid = normals(depth_b, rig, warp)
     qual = quality(depth_b, nrm, rig, warp)
     return ProcessedFrames(
         depth=depth_b, silhouette=sil, normals=nrm, quality=qual, color=color,

@@ -12,7 +12,11 @@ This is the per-slice form of the JAX sweep with the slab skip: slices of
 host from the frame's brick mask). The resample products keep the JAX
 version's bf16 rounding of weights, slices and the row-stage intermediate
 with float32 accumulation (TF32 off), so both sides resample the same
-numbers. The TPU's 16-slice slab branch is not ported.
+numbers. Two volume layouts, as the JAX sweep reads them: the dense
+emit's z-major color [Vz, 4, Vy, Vx] (``zmajor=True``) and channels-last
+color [Vz, Vy, Vx, 4] (the block-major and table integrators), each beside
+a TSDF [Vz, Vy, Vx] in bf16 or f32. The TPU's 16-slice slab branch is not
+ported.
 """
 from __future__ import annotations
 
@@ -72,15 +76,19 @@ class SweepResult(NamedTuple):
 
 def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
           limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
-          slab_occupied: np.ndarray | None = None) -> SweepResult:
+          slab_occupied: np.ndarray | None = None, zmajor: bool = True) -> SweepResult:
     """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
-    Z-MAJOR color volume ``cvol`` [Vz, 4, Vy, Vx] (the dense-emit layout);
+    color volume ``cvol``: Z-MAJOR [Vz, 4, Vy, Vx] (the dense-emit layout)
+    or, with ``zmajor=False``, channels-last [Vz, Vy, Vx, 4];
     ``slab_occupied`` host bool[n_slices] in physical slice order."""
     dev = tsdf.device
     coord_perm, array_perm = _permutation(axis)
     vol = tsdf.permute(array_perm)                     # [S, R, C]
-    m = {0: 0, 1: 2, 2: 3}
-    col = cvol.permute((m[array_perm[0]], 1, m[array_perm[1]], m[array_perm[2]]))
+    if zmajor:
+        m = {0: 0, 1: 2, 2: 3}
+        col = cvol.permute((m[array_perm[0]], 1, m[array_perm[1]], m[array_perm[2]]))
+    else:
+        col = cvol.permute((array_perm[0], 3, array_perm[1], array_perm[2]))
     ns, nr, nc = vol.shape
 
     v2w = torch.as_tensor(vol_to_world_matrix(bbox), device=dev)
@@ -118,7 +126,7 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
         pc = eye_p[2] + sigma * (c_grid - eye_p[2])
         wr = _bf16(_hat_rows(pr * nr - 0.5, nr))         # [Ti, R]
         wc = _bf16(_hat_rows(pc * nc - 0.5, nc))         # [Si, C]
-        both = torch.cat([vol[k_phys][None], col[k_phys]], 0).to(torch.float32)
+        both = torch.cat([vol[k_phys][None].to(bf16), col[k_phys].to(bf16)], 0).to(torch.float32)
         with full_f32():
             t = wr @ both.permute(1, 0, 2).reshape(nr, 5 * nc)          # [Ti, 5C]
             out = _bf16(t).reshape(ti * 5, nc) @ wc.T                   # [5Ti, Si]
@@ -286,9 +294,10 @@ def shade_sweep(res: SweepResult, cam: RenderCamera, bbox: Bbox, axis: int,
 def render_fast(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera,
                 bbox: Bbox, limit: float, axis: int, flip: bool,
                 params: RenderParams = RenderParams(), cfg: SweepConfig = SweepConfig(),
-                slab_occupied: np.ndarray | None = None) -> RenderOutput:
-    """Sweep + screen warp + shading (shade modes 0/1/2)."""
-    res = sweep(tsdf, cvol, cam, bbox, limit, axis, flip, cfg, slab_occupied)
+                slab_occupied: np.ndarray | None = None, zmajor: bool = True) -> RenderOutput:
+    """Sweep + screen warp + shading (shade modes 0/1/2); ``zmajor``: the
+    color layout, as in ``sweep``."""
+    res = sweep(tsdf, cvol, cam, bbox, limit, axis, flip, cfg, slab_occupied, zmajor)
     return shade_sweep(res, cam, bbox, axis, flip, tsdf.shape[2 - axis], params, cfg)
 
 

@@ -1,5 +1,5 @@
 """GL-exact texture sampling on torch tensors (mirrors
-``rgbd_recon_tpu/ops/sample.py``; only the 2D LINEAR sampler is ported).
+``rgbd_recon_tpu/ops/sample.py``; the LINEAR samplers are ported).
 
 * texel ``i`` has its center at normalized coordinate ``(i + 0.5) / N``
 * LINEAR: ``c = t*N - 0.5`` clamped to ``[0, N-1]``, lerp between
@@ -35,6 +35,28 @@ def sample2d(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     top = v00 * (1.0 - fx) + v01 * fx
     bot = v10 * (1.0 - fx) + v11 * fx
     return top * (1.0 - fy) + bot * fy
+
+
+def sample3d(vol: torch.Tensor, str_: torch.Tensor) -> torch.Tensor:
+    """LINEAR-sample ``vol [D, H, W, C]`` at texcoords ``str_ [..., 3]`` in GL
+    order (s along W, t along H, r along D) -> ``[..., C]``."""
+    d, h, w = vol.shape[0], vol.shape[1], vol.shape[2]
+    flat = vol.reshape(d * h * w, -1)
+    x0, x1, fx = _linear_prep(str_[..., 0], w)
+    y0, y1, fy = _linear_prep(str_[..., 1], h)
+    z0, z1, fz = _linear_prep(str_[..., 2], d)
+
+    def tap(z, y, x):
+        return flat[(z * h + y) * w + x]
+
+    fx, fy, fz = fx[..., None], fy[..., None], fz[..., None]
+    c00 = tap(z0, y0, x0) * (1.0 - fx) + tap(z0, y0, x1) * fx
+    c01 = tap(z0, y1, x0) * (1.0 - fx) + tap(z0, y1, x1) * fx
+    c10 = tap(z1, y0, x0) * (1.0 - fx) + tap(z1, y0, x1) * fx
+    c11 = tap(z1, y1, x0) * (1.0 - fx) + tap(z1, y1, x1) * fx
+    c0 = c00 * (1.0 - fy) + c01 * fy
+    c1 = c10 * (1.0 - fy) + c11 * fy
+    return c0 * (1.0 - fz) + c1 * fz
 
 
 def pixel_texcoords(h: int, w: int, device=None) -> torch.Tensor:

@@ -60,6 +60,16 @@ _BASIS_SCALE = np.array(
 )
 
 
+def _solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve the float32 normal equations ``a`` [..., 10, 10] x = ``rhs``
+    [..., 10, 3] in float64 and round the solution to float32: frustum-edge
+    bricks with few clean voxels give ill-conditioned systems, where a
+    float32 factorization's rounding (which differs between the CPU and the
+    card) is amplified into the coefficients."""
+    sol, _ = torch.linalg.solve_ex(a.double(), rhs.double())
+    return sol.float()
+
+
 def _lsq(f, m, basis):
     """Masked per-brick LSQ. f [K, nb, B3, 3]; m [K, nb, B3] weights;
     basis [NBASIS, B3]. Returns coeffs [K, nb, NBASIS, 3]."""
@@ -69,8 +79,7 @@ def _lsq(f, m, basis):
     rhs = torch.einsum("knav,knvc->knac", mb, f)
     eye = torch.eye(NBASIS, device=f.device)
     ridge = (1e-6 * torch.clamp(nvalid, min=1.0))[..., None, None] * eye
-    sol, _ = torch.linalg.solve_ex(gram + ridge, rhs)
-    return sol
+    return _solve(gram + ridge, rhs)
 
 
 def _interior(n_src: int, n_dst: int) -> np.ndarray:

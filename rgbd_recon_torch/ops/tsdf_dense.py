@@ -27,7 +27,7 @@ from .. import native
 from ..utils.math import full_f32
 from .tsdf import TsdfConfig
 from .tsdf_affine import AffineTables, NBASIS, _brick_basis
-from .tsdf_fast import BRICK, occupied_list, pack_frames
+from .tsdf_fast import BRICK, occupied_list, pack_frames, scatter_bricks
 
 B3 = BRICK ** 3
 SIL_PL = 0.998       # bf16-tolerant silhouette gate (tsdf_pallas.py:57)
@@ -59,6 +59,48 @@ def _fuse(state, d_vox, depth, qual, sflip, rgb, limit):
             tc2 + rgb * w2[:, None], tcw2 + w2)
 
 
+def fuse_init(n: int, limit: float, device) -> tuple:
+    """Fusion state of n bricks: (wt, tw, tc, tcw, tc2, tcw2)."""
+    shape = (n, B3)
+    return (torch.full(shape, limit, device=device), torch.zeros(shape, device=device),
+            torch.zeros((n, 3, B3), device=device), torch.zeros(shape, device=device),
+            torch.zeros((n, 3, B3), device=device), torch.zeros(shape, device=device))
+
+
+def bilinear5(img, w, v0, v1, u0, u1, gu, gv):
+    """LINEAR taps of (1 - silhouette), quality, rgb from the packed frame
+    ``img`` f32[H*W, 6] at flat rows/columns: [..., 5]."""
+    chans = [2, 1, 3, 4, 5]
+
+    def taps(v, u):
+        t = img[v * w + u][..., chans]
+        return torch.cat([1.0 - t[..., :1], t[..., 1:]], dim=-1)
+
+    gu, gv = gu[..., None], gv[..., None]
+    left = (1.0 - gv) * taps(v0, u0) + gv * taps(v1, u0)
+    right = (1.0 - gv) * taps(v0, u1) + gv * taps(v1, u1)
+    return (1.0 - gu) * left + gu * right
+
+
+def fuse_sampled(state, d_vox, depth, lin, invalid, cv, limit):
+    """Substitute the corner pixel ``cv`` f32[6] for invalid voxels, then
+    fuse one sensor's samples (depth [n, B3], lin [n, B3, 5])."""
+    corner = torch.stack([1.0 - cv[2], cv[1], cv[3], cv[4], cv[5]])
+    lin = torch.where(invalid[..., None], corner, lin)
+    depth = torch.where(invalid, cv[0], depth)
+    return _fuse(state, d_vox, depth, lin[..., 1], lin[..., 0],
+                 lin[..., 2:].permute(0, 2, 1), limit)
+
+
+def fuse_finish(state):
+    """(wt [n, B3], rgb [n, 3, B3], flag [n, B3]) of a fusion state."""
+    wt, _, tc, tcw, tc2, tcw2 = state
+    hasq = tcw > 0.0
+    rgb = torch.where(hasq[:, None], tc / torch.clamp(tcw, min=1e-20)[:, None],
+                      tc2 / torch.clamp(tcw2, min=1e-20)[:, None])
+    return wt, rgb, torch.where(hasq, 1.0, -1.0)
+
+
 def _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
                  xstride, limit):
     """Fused (wt f32[n, B3], rgb f32[n, 3, B3], flag f32[n, B3]) of the
@@ -66,10 +108,7 @@ def _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
     num_k = packed.shape[0]
     n = bricks.shape[0]
     dev = packed.device
-    shape = (n, B3)
-    state = (torch.full(shape, limit, device=dev), torch.zeros(shape, device=dev),
-             torch.zeros((n, 3, B3), device=dev), torch.zeros(shape, device=dev),
-             torch.zeros((n, 3, B3), device=dev), torch.zeros(shape, device=dev))
+    state = fuse_init(n, limit, dev)
     scale = torch.tensor([w, h, 1.0], device=dev)
     for k in range(num_k):
         y_lo = win_off[k, bricks, 0].to(torch.int64)
@@ -98,27 +137,13 @@ def _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
         depth = img[(y_lo[:, None] + nv) * w + x_lo[:, None] + nu, 0]
         cu, cv_ = clip_hi(pu, hu), clip_hi(pv, hv)
         iu, iv = torch.floor(cu), torch.floor(cv_)
-        gu, gv = (cu - iu)[..., None], (cv_ - iv)[..., None]
+        gu, gv = cu - iu, cv_ - iv
         iu, iv = iu.to(torch.int64), iv.to(torch.int64)
-        u0 = x_lo[:, None] + iu
-        u1 = x_lo[:, None] + torch.minimum(iu + 1, hu)
-        v0 = y_lo[:, None] + iv
-        v1 = y_lo[:, None] + torch.minimum(iv + 1, hv)
-        chans = [2, 1, 3, 4, 5]                  # (1 - sil), qual, r, g, b
-
-        def taps(v, u):
-            t = img[v * w + u][..., chans]
-            return torch.cat([1.0 - t[..., :1], t[..., 1:]], dim=-1)
-
-        left = (1.0 - gv) * taps(v0, u0) + gv * taps(v1, u0)
-        right = (1.0 - gv) * taps(v0, u1) + gv * taps(v1, u1)
-        lin = (1.0 - gu) * left + gu * right                     # [n, B3, 5]
+        lin = bilinear5(img, w, y_lo[:, None] + iv, y_lo[:, None] + torch.minimum(iv + 1, hv),
+                        x_lo[:, None] + iu, x_lo[:, None] + torch.minimum(iu + 1, hu),
+                        gu, gv)                                   # [n, B3, 5]
         cv = packed[k, 0, 0]                                     # corner pixel
-        corner = torch.stack([1.0 - cv[2], cv[1], cv[3], cv[4], cv[5]])
-        lin = torch.where(invalid[..., None], corner, lin)
-        depth = torch.where(invalid, cv[0], depth)
-        full = _fuse(state, pd, depth, lin[..., 1], lin[..., 0],
-                     lin[..., 2:].permute(0, 2, 1), limit)
+        full = fuse_sampled(state, pd, depth, lin, invalid, cv, limit)
         zero = torch.zeros_like(pd)
         inv = _fuse(state, zero, cv[0] + zero, cv[1] + zero, 1.0 - cv[2] + zero,
                     cv[3:6][None, :, None] + torch.zeros_like(state[2]), limit)
@@ -131,41 +156,32 @@ def _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
             out.append(torch.where(c == 0, s_full, torch.where(
                 c == 3, s_inv, torch.where(c == 2, s_front, s_none))))
         state = tuple(out)
-    wt, _, tc, tcw, tc2, tcw2 = state
-    hasq = tcw > 0.0
-    rgb = torch.where(hasq[:, None], tc / torch.clamp(tcw, min=1e-20)[:, None],
-                      tc2 / torch.clamp(tcw2, min=1e-20)[:, None])
-    return wt, rgb, torch.where(hasq, 1.0, -1.0)
+    return fuse_finish(state)
+
+
+def integrate_quadratic_plain(packed, coeffs, idx, count, win_off, cls, res,
+                              wy, wx, xstride, limit):
+    """The fusion of kernels 1 and 6 in PyTorch, in float32: (TSDF
+    [Vz, Vy, Vx], color [Vz, Vy, Vx, 4]) with the clear values where no
+    brick is occupied. Syncs with the device once to read the occupied
+    count."""
+    _, h, w, _ = packed.shape
+    basis = torch.as_tensor(_brick_basis(), device=packed.device)
+
+    def chunk(bricks):
+        return _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
+                            xstride, limit)
+
+    return scatter_bricks(chunk, idx, count, res, limit, PLAIN_CHUNK)
 
 
 def integrate_dense_plain(packed, coeffs, idx, count, win_off, cls, res,
                           wy, wx, xstride, limit):
     """PyTorch form of kernel 1 (see integrate_dense); takes the kernel's
-    arguments. Syncs with the device once to read the occupied count."""
-    vx, vy, vz = res
-    nby, nbx = vy // BRICK, vx // BRICK
-    _, h, w, _ = packed.shape
-    dev = packed.device
-    tsdf = torch.full((vz * vy * vx,), -limit, device=dev)
-    color = torch.zeros((vz * 4 * vy * vx,), device=dev)
-    basis = torch.as_tensor(_brick_basis(), device=dev)
-    v = torch.arange(B3, device=dev)
-    lz, ly, lx = v // (BRICK * BRICK), (v // BRICK) % BRICK, v % BRICK
-    n_occ = int(count.reshape(-1)[0])
-    for s in range(0, n_occ, PLAIN_CHUNK):
-        bricks = idx[s:min(s + PLAIN_CHUNK, n_occ)].to(torch.int64)
-        wt, rgb, flag = _brick_chunk(packed, coeffs, win_off, cls, bricks,
-                                     basis, h, w, wy, wx, xstride, limit)
-        bz = (bricks // (nby * nbx))[:, None]
-        by = ((bricks // nbx) % nby)[:, None]
-        bx = (bricks % nbx)[:, None]
-        z, y, x = bz * BRICK + lz, by * BRICK + ly, bx * BRICK + lx
-        tsdf[(z * vy + y) * vx + x] = wt
-        for c in range(4):
-            val = rgb[:, c] if c < 3 else flag
-            color[((z * 4 + c) * vy + y) * vx + x] = val
-    return (tsdf.reshape(vz, vy, vx).to(torch.bfloat16),
-            color.reshape(vz, 4, vy, vx).to(torch.bfloat16))
+    arguments."""
+    tsdf, color = integrate_quadratic_plain(packed, coeffs, idx, count, win_off, cls, res,
+                                            wy, wx, xstride, limit)
+    return tsdf.to(torch.bfloat16), color.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)
 
 
 _INTEGRATE_DENSE = native.Kernel(

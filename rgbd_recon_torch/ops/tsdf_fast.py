@@ -1,10 +1,105 @@
-"""Brick-sparse integration helpers (mirrors the parts of
-``rgbd_recon_tpu/ops/tsdf_fast.py`` the dense-emit path uses)."""
+"""Brick-sparse integration helpers and the dense voxel -> sensor warp
+table (mirrors ``rgbd_recon_tpu/ops/tsdf_fast.py``).
+
+``precompute_tables`` bakes ``sample3d(cv_xyz_inv[k], voxel_centers)`` for
+every voxel as a separable GL-exact trilinear resize (three float32
+products, TF32 off) on the pipeline's device, in the block-major layout
+the table-tier integrator reads (``IntegrationTables``; ~805 MB at 256^3 x
+4 sensors). The XLA integrator ``integrate_sparse`` of the JAX module is
+not ported: the table tier runs kernel 7 (ops/tsdf_sparse.py).
+"""
 from __future__ import annotations
 
+import hashlib
+import os
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from ..utils.math import full_f32
+from .warp import _gl_resize_weights_np
+
 BRICK = 16          # voxels per brick edge
+B3 = BRICK ** 3
+
+
+class IntegrationTables(NamedTuple):
+    """Baked voxel -> (u, v, d_norm) warp in BLOCK-MAJOR layout: brick b of
+    the 16^3 partition holds its voxels contiguously, z-major within the
+    brick. Off-frustum voxels read (-1, -1, -1)."""
+
+    pos_blocked: torch.Tensor  # f32[K, NB, B3, 3]
+
+
+def _to_blocked(pos: torch.Tensor) -> torch.Tensor:
+    """[K, Vz, Vy, Vx, 3] -> block-major [K, NB, B3, 3]."""
+    k, vz, vy, vx, c = pos.shape
+    nz, ny, nx = vz // BRICK, vy // BRICK, vx // BRICK
+    p = pos.reshape(k, nz, BRICK, ny, BRICK, nx, BRICK, c)
+    return p.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(k, nz * ny * nx, B3, c).contiguous()
+
+
+def precompute_tables(rig, cfg, device: torch.device | str = "cpu") -> IntegrationTables:
+    """The voxel -> sensor warp of every sensor at the volume res
+    (tsdf_integration.vs:31 hoisted out of the frame loop), on ``device``."""
+    vx, vy, vz = cfg.res
+    src = torch.tensor(np.asarray(rig.cv_xyz_inv, np.float32), device=device)
+
+    def wts(n_src, n_dst):
+        return torch.as_tensor(_gl_resize_weights_np(n_src, n_dst), device=device)
+
+    with full_f32():
+        pos = torch.einsum("Dd,kdhwc->kDhwc", wts(src.shape[1], vz), src)
+        pos = torch.einsum("Hh,kDhwc->kDHwc", wts(src.shape[2], vy), pos)
+        pos = torch.einsum("Ww,kDHwc->kDHWc", wts(src.shape[3], vx), pos)
+    return IntegrationTables(pos_blocked=_to_blocked(pos))
+
+
+def tables_cached(rig, cfg, device: torch.device | str = "cpu",
+                  cache_dir: str | None = None) -> IntegrationTables:
+    """``precompute_tables`` with an optional on-disk cache under
+    ``cache_dir``, keyed by the content of cv_xyz_inv and the volume res
+    (the JAX package's key, so both share a cache)."""
+    if cache_dir is None:
+        return precompute_tables(rig, cfg, device)
+    src = np.asarray(rig.cv_xyz_inv)
+    key = hashlib.sha1(
+        src.tobytes() + repr(("blocked-v2", tuple(cfg.res))).encode()).hexdigest()[:16]
+    path = os.path.join(cache_dir, f"warp-{key}.npy")
+    if os.path.exists(path):
+        return IntegrationTables(torch.as_tensor(np.load(path), device=device))
+    tables = precompute_tables(rig, cfg, device)
+    os.makedirs(cache_dir, exist_ok=True)
+    np.save(path, tables.pos_blocked.cpu().numpy())
+    return tables
+
+
+def _footprint_mid(tables: IntegrationTables, h: int, w: int):
+    """Footprint midpoints (x_mid, y_mid) f32[K, NB] in pixels of each
+    brick's VALID projections (u >= 0), clamped to the image."""
+    pc = tables.pos_blocked
+    u, v = pc[..., 0], pc[..., 1]
+    invalid = u < 0.0
+    big = 1e9
+    ux = torch.clamp(u * w - 0.5, 0.0, w - 1.0)
+    vy = torch.clamp(v * h - 0.5, 0.0, h - 1.0)
+
+    def mid(a):
+        return (torch.where(invalid, big, a).amin(dim=-1)
+                + torch.where(invalid, -big, a).amax(dim=-1)) * 0.5
+
+    return mid(ux), mid(vy)
+
+
+def win_offsets(tables: IntegrationTables, h: int, w: int, window: int) -> torch.Tensor:
+    """Per-brick per-sensor image-window origins i32[K, NB, 2] as (y, x):
+    a ``window``-px square centered on the footprint midpoint, clipped to
+    the image (the placement of the JAX package's XLA integrator)."""
+    x_mid, y_mid = _footprint_mid(tables, h, w)
+    x_lo = torch.clamp(torch.floor(x_mid).to(torch.int32) - window // 2, 0, w - window)
+    y_lo = torch.clamp(torch.floor(y_mid).to(torch.int32) - window // 2, 0, h - window)
+    return torch.stack([y_lo, x_lo], dim=-1).to(torch.int32).contiguous()
 
 
 def pack_frames(frames) -> torch.Tensor:
@@ -37,3 +132,30 @@ def occupied_list(mask16: torch.Tensor, max_bricks: int):
     valid = torch.arange(max_bricks, device=mask16.device) < total
     count = torch.clamp(total, max=max_bricks).to(torch.int32)
     return idx[:max_bricks].contiguous(), valid, count
+
+
+def scatter_bricks(chunk_fn, idx, count, res, limit: float, chunk: int):
+    """Run ``chunk_fn(bricks i64[n])`` -> (wt f32[n, B3], rgb f32[n, 3, B3],
+    flag f32[n, B3]) over the first ``count`` ids of ``idx``, ``chunk``
+    bricks at a time, into the dense volumes (TSDF f32[Vz, Vy, Vx] cleared
+    to -limit, color f32[Vz, Vy, Vx, 4] cleared to 0) — the plain form of
+    the integration kernels' one block per brick. Syncs once for the
+    count."""
+    vx, vy, vz = res
+    nby, nbx = vy // BRICK, vx // BRICK
+    dev = idx.device
+    tsdf = torch.full((vz * vy * vx,), -limit, device=dev)
+    color = torch.zeros((vz * vy * vx, 4), device=dev)
+    v = torch.arange(B3, device=dev)
+    lz, ly, lx = v // (BRICK * BRICK), (v // BRICK) % BRICK, v % BRICK
+    n_occ = int(count.reshape(-1)[0])
+    for s in range(0, n_occ, chunk):
+        bricks = idx[s:min(s + chunk, n_occ)].to(torch.int64)
+        wt, rgb, flag = chunk_fn(bricks)
+        bz = (bricks // (nby * nbx))[:, None]
+        by = ((bricks // nbx) % nby)[:, None]
+        bx = (bricks % nbx)[:, None]
+        vox = ((bz * BRICK + lz) * vy + by * BRICK + ly) * vx + bx * BRICK + lx
+        tsdf[vox] = wt
+        color[vox] = torch.cat([rgb, flag[:, None]], dim=1).permute(0, 2, 1)
+    return tsdf.reshape(vz, vy, vx), color.reshape(vz, vy, vx, 4)

@@ -1,0 +1,74 @@
+"""Block-major integration from the per-brick quadratic warp, for volumes
+the dense emit cannot tile (mirrors ``rgbd_recon_tpu/ops/tsdf_persist.py``).
+
+``integrate_affine`` is the port of the TPU kernel
+``integrate_affine_pallas``: the fusion of kernel 1 (ops/tsdf_dense.py)
+with every sensor FULL (no depth-band classes), the fixed 64-col windows
+at stride 16 and auto-sized rows, emitting f32 TSDF [Vz, Vy, Vx] and bf16
+color [Vz, Vy, Vx, 4] in voxel order with the clear values where no brick
+is occupied. The CUDA kernel is a template mode of
+``csrc/integrate_dense.cu`` with its own entry point;
+``integrate_affine_plain`` is the same function in PyTorch.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import native
+from .tsdf import TsdfConfig
+from .tsdf_affine import NBASIS, AffineTables
+from .tsdf_dense import integrate_quadratic_plain
+from .tsdf_fast import BRICK, occupied_list, pack_frames
+
+WX2 = 64         # x window (cols) of the block-major kernel
+XSTRIDE2 = 16    # x-block stride
+
+
+def integrate_affine_plain(packed, coeffs, idx, count, win_off, res, wy, limit):
+    """PyTorch form of kernel 6 (see integrate_affine); takes the kernel's
+    arguments."""
+    tsdf, color = integrate_quadratic_plain(packed, coeffs, idx, count, win_off, None, res,
+                                            wy, WX2, XSTRIDE2, limit)
+    return tsdf, color.to(torch.bfloat16)
+
+
+_INTEGRATE_AFFINE = native.Kernel(
+    "integrate_affine", [native.P] * 7 + [native.I] * 11 + [native.F])
+
+
+def integrate_affine_cuda(packed, coeffs, idx, count, win_off, res, wy, limit):
+    """Kernel 6 on the card (``csrc/integrate_dense.cu``,
+    ``rr_integrate_affine``); the arguments of ``integrate_affine_plain``.
+    No host sync."""
+    vx, vy, vz = res
+    num_k, h, w, _ = packed.shape
+    nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
+    max_bricks = idx.shape[0]
+    dev = packed.device
+    native.check(packed, "packed", torch.float32, (num_k, h, w, 6), dev)
+    native.check(coeffs, "coeffs", torch.float32, (num_k, nb, 4, NBASIS), dev)
+    native.check(idx, "idx", torch.int32, (max_bricks,), dev)
+    native.check(count, "count", torch.int32, (1,), dev)
+    native.check(win_off, "win_off", torch.int32, (num_k, nb, 2), dev)
+    tsdf = torch.empty((vz, vy, vx), dtype=torch.float32, device=dev)
+    color = torch.empty((vz, vy, vx, 4), dtype=torch.bfloat16, device=dev)
+    _INTEGRATE_AFFINE(packed.data_ptr(), coeffs.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                      win_off.data_ptr(), tsdf.data_ptr(), color.data_ptr(), num_k, h, w, nb,
+                      vx // BRICK, vy // BRICK, vz // BRICK, max_bricks, wy, WX2, XSTRIDE2,
+                      limit)
+    return tsdf, color
+
+
+def integrate_affine(frames, affine: AffineTables, cfg: TsdfConfig, mask16: torch.Tensor,
+                     max_bricks: int, win_off: torch.Tensor, wy: int):
+    """Fused TSDF f32[Vz, Vy, Vx] + color bf16[Vz, Vy, Vx, 4] of the
+    occupied 16^3 bricks of ``mask16`` (the first ``max_bricks`` in
+    ascending order). ``win_off`` i32[K, NB, 2] from
+    win_offsets_affine(affine, h, w, wy, WX2, XSTRIDE2)."""
+    vx, vy, vz = cfg.res
+    if vx % BRICK or vy % BRICK or vz % BRICK:
+        raise ValueError(f"the block-major integrator needs a 16-aligned res, got {cfg.res}")
+    packed = pack_frames(frames)
+    idx, _, count = occupied_list(mask16, max_bricks)
+    run = integrate_affine_cuda if native.is_cuda(packed) else integrate_affine_plain
+    return run(packed, affine.coeffs, idx, count, win_off, cfg.res, wy, float(cfg.limit))

@@ -89,18 +89,15 @@ def bake_pixel_warp(rig, height: int, width: int,
     t_np = ((np.arange(dz, dtype=np.float64) + 0.5) / dz).astype(np.float32)
     tm = t_np.mean()
     tv = float(((t_np - tm) ** 2).sum())
-    t = torch.as_tensor(t_np, device=device)
     wy = torch.as_tensor(_gl_resize_weights_np(rig.cv_xyz.shape[2], height), device=device)
     wx = torch.as_tensor(_gl_resize_weights_np(rig.cv_xyz.shape[3], width), device=device)
 
     def fit(vol_np):
         vol = torch.tensor(np.asarray(vol_np, np.float32), device=device)
-        m = vol.mean(dim=1)                                   # [K, Dy, Dx, C]
-        b = torch.einsum("d,kdyxc->kyxc", t - float(tm), vol) / tv
-        a = m - b * float(tm)
+        a, b = _affine_fit(vol, t_np - tm, float(tm), tv)      # [K, Dy, Dx, C]
         resid = 0.0
         for d in range(dz):
-            resid = max(resid, float((vol[:, d] - (a + t[d] * b)).abs().max()))
+            resid = max(resid, float((vol[:, d] - (a + float(t_np[d]) * b)).abs().max()))
         return a, b, resid
 
     def resize(p):
@@ -120,6 +117,229 @@ def bake_pixel_warp(rig, height: int, width: int,
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# piecewise-linear-in-depth warp (kernel 5)
+
+
+def piecewise_eval_plain(dc: torch.Tensor, cc: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """PyTorch form of kernel 5 (see piecewise_eval) on the clamped depths
+    ``dc`` and knot coordinates ``cc`` f32[M, K, H, W]: ``a + dc b`` plus
+    the two knots that bracket ``cc`` with hat weights, in knot order —
+    the other knots' weights are exactly 0, so the sum over all knots is
+    the same. Returns f32[M, K, H, W, C]."""
+    s = r.shape[2]
+    i0 = torch.floor(cc)
+    w0 = torch.clamp(1.0 - (cc - i0).abs(), min=0.0)
+    w1 = torch.clamp(1.0 - (cc - (i0 + 1.0)).abs(), min=0.0)
+    idx0 = i0.to(torch.int64).permute(1, 0, 2, 3)            # [K, M, H, W]
+    idx1 = torch.clamp(idx0 + 1, max=s - 1)
+
+    def knot(idx):   # r[k, c, idx[k, m, h, w], h, w] -> [M, K, C, H, W]
+        i = idx[:, None].expand(-1, r.shape[1], -1, -1, -1)
+        return torch.gather(r, 2, i).to(torch.float32).permute(2, 0, 1, 3, 4)
+
+    acc = a.permute(0, 3, 1, 2)[None] + dc[:, :, None] * b.permute(0, 3, 1, 2)[None]
+    acc = acc + w0[:, :, None] * knot(idx0)
+    acc = acc + w1[:, :, None] * knot(idx1)
+    return acc.permute(0, 1, 3, 4, 2)
+
+
+_PIECEWISE = native.Kernel("piecewise_eval", [native.P] * 6 + [native.I] * 6)
+
+
+def piecewise_eval_cuda(dc, cc, a, b, r) -> torch.Tensor:
+    """Kernel 5 on the card (``csrc/piecewise_eval.cu``); the arguments of
+    ``piecewise_eval_plain``."""
+    m, k, h, w = dc.shape
+    c, s = r.shape[1], r.shape[2]
+    dev = dc.device
+    native.check(dc, "dc", torch.float32, (m, k, h, w), dev)
+    native.check(cc, "cc", torch.float32, (m, k, h, w), dev)
+    native.check(a, "a", torch.float32, (k, h, w, c), dev)
+    native.check(b, "b", torch.float32, (k, h, w, c), dev)
+    native.check(r, "r", torch.bfloat16, (k, c, s, h, w), dev)
+    out = torch.empty((m, k, h, w, c), dtype=torch.float32, device=dev)
+    _PIECEWISE(dc.data_ptr(), cc.data_ptr(), a.data_ptr(), b.data_ptr(), r.data_ptr(),
+               out.data_ptr(), m, k, c, s, h, w)
+    return out
+
+
+def knot_coords(D: torch.Tensor, d_min: float, d_max: float, knots: int):
+    """The clamped depths and knot coordinates (dc, cc) f32[M, K, H, W] of
+    kernel 5's two forms, computed outside them as the TPU wrapper does."""
+    dc = torch.clamp(D, d_min, d_max).contiguous()
+    return dc, ((dc - d_min) / (d_max - d_min) * (knots - 1)).contiguous()
+
+
+def piecewise_eval(D: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   r: torch.Tensor, d_min: float, d_max: float) -> torch.Tensor:
+    """``A + d B + sum_s hat(c(d) - s) R[s]`` for M stacked depth maps — the
+    output of ``piecewise_eval_pallas``. D f32[M, K, H, W]; a, b
+    f32[K, H, W, C]; r bf16[K, C, S, H, W]. Returns f32[M, K, H, W, C]."""
+    dc, cc = knot_coords(D, d_min, d_max, r.shape[2])
+    run = piecewise_eval_cuda if native.is_cuda(D) else piecewise_eval_plain
+    return run(dc, cc, a, b, r)
+
+
+class PiecewiseWarp(NamedTuple):
+    """Per-pixel PIECEWISE-linear-in-depth calibration warp, the middle
+    tier between the affine PixelWarp and the gather oracle: the
+    least-squares affine part (A + d B, f32) plus a bf16 residual table
+    R[k, c, s, y, x] at ``knots`` uniformly spaced depths over the
+    GL-clamped depth domain. Residuals measured at bake time on the raw cv
+    depth grid with R already bf16 (callers gate on ``max_err_*``)."""
+
+    xyz_a: torch.Tensor   # [K, H, W, 3] f32
+    xyz_b: torch.Tensor   # [K, H, W, 3] f32
+    uv_a: torch.Tensor    # [K, H, W, 2] f32
+    uv_b: torch.Tensor    # [K, H, W, 2] f32
+    xyz_r: torch.Tensor   # [K, 3, S, H, W] bf16 residual knot planes
+    uv_r: torch.Tensor    # [K, 2, S, H, W] bf16
+    d_min: float
+    d_max: float
+    max_err_xyz: float
+    max_err_uv: float
+
+    @property
+    def knots(self) -> int:
+        return self.xyz_r.shape[2]
+
+    def _eval_multi(self, D, a, b, r):
+        """M stacked depth maps against one table: D [M, K, H, W] ->
+        [M, K, H, W, C] (kernel 5 on the card)."""
+        return piecewise_eval(D.contiguous(), a, b, r, self.d_min, self.d_max)
+
+    def _eval_line(self, a_l, b_l, r_l, d_l):
+        """Line evaluation (border fixes) as a one-row image through kernel
+        5: a_l/b_l [K, N, C], r_l [K, C, S, N], d_l [K, N] -> [K, N, C]. The
+        JAX loop over all S knots adds the same two non-zero terms in the
+        same order."""
+        return piecewise_eval(d_l[None, :, None].contiguous(), a_l[:, None].contiguous(),
+                              b_l[:, None].contiguous(), r_l[:, :, :, None].contiguous(),
+                              self.d_min, self.d_max)[0, :, 0]
+
+    def xyz(self, d: torch.Tensor) -> torch.Tensor:
+        return self._eval_multi(d[None], self.xyz_a, self.xyz_b, self.xyz_r)[0]
+
+    def uv(self, d: torch.Tensor) -> torch.Tensor:
+        return self._eval_multi(d[None], self.uv_a, self.uv_b, self.uv_r)[0]
+
+    # xyz_shifted(dy, dx, d)[y, x] = P[clamp(y+dy), clamp(x+dx)](d[y, x]):
+    # the depth map is COUNTER-shifted, evaluated pixelwise on the unshifted
+    # planes and the result shifted back — exact except on the one
+    # clamp-collapsed border line, which a direct line evaluation fixes.
+
+    def _counter_shift(self, dy, dx, d):
+        return _shift2d(d[..., None], -dy, -dx)[..., 0]
+
+    def _shift_fix(self, q, dy, dx, d):
+        out = _shift2d(q, dy, dx)          # a fresh tensor (index copy)
+        h, w = q.shape[1], q.shape[2]
+        if dy != 0:
+            row = h - 1 if dy > 0 else 0
+            out[:, row] = self._eval_line(self.xyz_a[:, row], self.xyz_b[:, row],
+                                          self.xyz_r[:, :, :, row], d[:, row])
+        if dx != 0:
+            col = w - 1 if dx > 0 else 0
+            out[:, :, col] = self._eval_line(self.xyz_a[:, :, col], self.xyz_b[:, :, col],
+                                             self.xyz_r[:, :, :, :, col], d[:, :, col])
+        return out
+
+    def xyz_shifted(self, dy: int, dx: int, d: torch.Tensor) -> torch.Tensor:
+        q = self._eval_multi(self._counter_shift(dy, dx, d)[None],
+                             self.xyz_a, self.xyz_b, self.xyz_r)[0]
+        return self._shift_fix(q, dy, dx, d)
+
+    def xyz_neighborhood(self, dn, d_t, d_b, d_l, d_r):
+        """The pre_normal.fs 5-tap stencil (center, +y, -y, -x, +x) in ONE
+        kernel pass over the knot table (M = 5)."""
+        D = torch.stack([dn, self._counter_shift(1, 0, d_t),
+                         self._counter_shift(-1, 0, d_b),
+                         self._counter_shift(0, -1, d_l),
+                         self._counter_shift(0, 1, d_r)])
+        q = self._eval_multi(D, self.xyz_a, self.xyz_b, self.xyz_r)
+        return (q[0], self._shift_fix(q[1], 1, 0, d_t), self._shift_fix(q[2], -1, 0, d_b),
+                self._shift_fix(q[3], 0, -1, d_l), self._shift_fix(q[4], 0, 1, d_r))
+
+
+def _affine_fit(vol: torch.Tensor, tc: np.ndarray, tm: float, tv: float):
+    """Per-column least-squares A + t B over the d axis of vol f32[K, Dz,
+    Dy, Dx, C] (closed form), ``tc`` = t - mean(t) f32[Dz]. Summed in the
+    numpy original's order: the mean slice by slice, the slope as one
+    float32 fused multiply-add chain over the slices (OpenBLAS's gemv; the
+    float64 product of two float32 values is exact)."""
+    dz = vol.shape[1]
+    m = vol[:, 0]
+    for d in range(1, dz):
+        m = m + vol[:, d]
+    m = m / dz
+    acc = torch.zeros_like(m)
+    for d in range(dz):
+        acc = (float(tc[d]) * vol[:, d].double() + acc.double()).float()
+    b = acc / tv
+    return m - b * tm, b
+
+
+def bake_piecewise_warp(rig, height: int, width: int, knots: int = 32,
+                        device: torch.device | str = "cpu") -> PiecewiseWarp:
+    """The piecewise warp: affine part as ``bake_pixel_warp``'s fit;
+    residual knot planes from the depth-lerp of the raw cv slices (the knot
+    value is the exact trilinear sample at that depth), stored bf16; both
+    resized to pixel centers. Residual = max |piecewise(d_j) - cv[:, j]|
+    over every raw depth texel j with the stored bf16 R. Torch on
+    ``device``; the numpy original's operations, float32."""
+    dz = rig.cv_xyz.shape[1]
+    d_min, d_max = 0.5 / dz, 1.0 - 0.5 / dz
+    t_np = ((np.arange(dz, dtype=np.float64) + 0.5) / dz).astype(np.float32)
+    tm = float(t_np.mean())
+    tv = float(((t_np - np.float32(tm)) ** 2).sum())
+    d_knots = np.linspace(d_min, d_max, knots).astype(np.float32)
+    c_k = np.clip(d_knots * dz - 0.5, 0.0, dz - 1)
+    i0 = np.floor(c_k).astype(np.int64)
+    i1 = np.minimum(i0 + 1, dz - 1)
+    wk = (c_k - i0).astype(np.float32)
+    cc = (t_np - d_min) / (d_max - d_min) * (knots - 1)
+
+    def fit(vol_np):
+        vol = torch.tensor(np.asarray(vol_np, np.float32), device=device)
+        a, b = _affine_fit(vol, t_np - np.float32(tm), tm, tv)
+        r = torch.stack([
+            (vol[:, a0] * (1.0 - float(wv)) + vol[:, a1] * float(wv)) - (a + float(dk) * b)
+            for a0, a1, wv, dk in zip(i0, i1, wk, d_knots)
+        ], dim=1).to(torch.bfloat16)                           # [K, S, Dy, Dx, C]
+        rf = r.to(torch.float32)
+        resid = 0.0
+        for j in range(dz):
+            hat = np.clip(1.0 - np.abs(cc[j] - np.arange(knots)), 0.0, 1.0)
+            pred = a + float(t_np[j]) * b
+            for s in np.nonzero(hat)[0]:
+                pred = pred + float(hat[s]) * rf[:, s]
+            resid = max(resid, float((pred - vol[:, j]).abs().max()))
+        return a, b, r, resid
+
+    wy = torch.as_tensor(_gl_resize_weights_np(rig.cv_xyz.shape[2], height), device=device)
+    wx = torch.as_tensor(_gl_resize_weights_np(rig.cv_xyz.shape[3], width), device=device)
+
+    def resize(p):
+        p = torch.einsum("Yy,...yxc->...Yxc", wy, p.to(torch.float32))
+        return torch.einsum("Xx,...Yxc->...YXc", wx, p).contiguous()
+
+    def to_cf(r):   # [K, S, H, W, C] -> kernel layout [K, C, S, H, W]
+        return r.permute(0, 4, 1, 2, 3).contiguous()
+
+    with full_f32():
+        xyz_a, xyz_b, xyz_r, err_xyz = fit(rig.cv_xyz)
+        uv_a, uv_b, uv_r, err_uv = fit(rig.cv_uv)
+        return PiecewiseWarp(
+            xyz_a=resize(xyz_a), xyz_b=resize(xyz_b),
+            uv_a=resize(uv_a), uv_b=resize(uv_b),
+            xyz_r=to_cf(resize(xyz_r).to(torch.bfloat16)),
+            uv_r=to_cf(resize(uv_r).to(torch.bfloat16)),
+            d_min=d_min, d_max=d_max, max_err_xyz=err_xyz, max_err_uv=err_uv,
+        )
 
 
 def resize2d_gl(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

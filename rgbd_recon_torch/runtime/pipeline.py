@@ -9,15 +9,22 @@ in four stages, named like the reference's TimerDatabase entries:
   3recon       sweep raymarch renderer (screen-warp kernel)
   holefill     inpaint pyramid + colorfill
 
-This is the staged fast path of the JAX pipeline at the settings its main
-path uses: pinhole rig with the affine pixel warp, 16-aligned volume with
-``Vx % 128 == 0``, per-brick quadratic warp, dense emit. What the port
-does not implement is rejected in ``_configure`` / on the first frame, not
-ignored: fused mode, the dense-table integrator (``use_affine=False`` or
-an affine residual over ``affine_tol``), distorted rigs (pixel-warp
-residual over ``warp_tol``), and volumes the dense emit cannot tile.
-Session bakes run lazily at the first frame's sensor size, in torch, on
-the pipeline's ``device``.
+This is the staged fast path of the JAX pipeline with its gates:
+
+  pixel warp  affine (residual <= ``warp_tol``) -> piecewise (``warp_knots``
+              knots, residual <= ``pw_warp_tol``; kernel 5) -> the exact
+              gather of the cv volumes (also ``use_warp=False``)
+  integrator  per-brick quadratic warp (``affine_tol``): dense emit into
+              the sweep's z-major layout when ``Vx % 128 == 0`` (kernel 1),
+              else block-major (kernel 6); the dense warp table for
+              ``use_affine=False`` or a residual over ``affine_tol``
+              (kernel 7, no depth-band cull)
+
+What the port does not implement is rejected in ``_configure``, not
+ignored: fused mode, the reference (non-brick) path (``fast_path`` or
+``use_bricks`` off, volumes that are not 16-aligned) and
+``use_pallas=False``. Session bakes run lazily at the first frame's sensor
+size, in torch, on the pipeline's ``device``.
 """
 from __future__ import annotations
 
@@ -35,9 +42,12 @@ from ..ops import raymarch as rm
 from ..ops import raymarch_fast as rmf
 from ..ops import tsdf_affine
 from ..ops import tsdf as tsdf_ops
+from ..ops import tsdf_fast
 from ..ops.tsdf_dense import integrate_dense
 from ..ops.tsdf_fast import BRICK
-from ..ops.warp import bake_pixel_warp
+from ..ops.tsdf_persist import WX2, XSTRIDE2, integrate_affine
+from ..ops.tsdf_sparse import integrate_sparse, win_offsets_pallas
+from ..ops.warp import bake_piecewise_warp, bake_pixel_warp
 from ..utils.math import look_at, perspective
 from ..utils.timers import TimerDatabase
 
@@ -80,7 +90,7 @@ class FrameOutput(NamedTuple):
     color: torch.Tensor           # f32[H, W, 4] final image (hole-filled)
     depth: torch.Tensor           # f32[H, W] window depth
     hit: torch.Tensor             # bool[H, W]
-    tsdf: torch.Tensor            # bf16[Vz, Vy, Vx]
+    tsdf: torch.Tensor            # [Vz, Vy, Vx]: bf16 (dense emit) or f32
     occupied_ratio: torch.Tensor  # f32[]
     num_samples: torch.Tensor     # i32[H, W]
     occupied_bricks: torch.Tensor  # i32[] occupied 16^3 blocks this frame
@@ -106,7 +116,6 @@ class FramePipeline:
         self.timers = TimerDatabase()
         for t in STAGE_TIMERS:
             self.timers.add_timer(t)
-        self._drig = device_rig(rig, self.device)
         self._configure(cfg)
 
     def _configure(self, cfg: PipelineConfig) -> None:
@@ -114,9 +123,7 @@ class FramePipeline:
             "fused": cfg.fused,
             "fast_path=False": not cfg.fast_path,
             "use_bricks=False": not cfg.use_bricks,
-            "use_warp=False": not cfg.use_warp,
             "use_pallas=False": cfg.use_pallas is False,
-            "use_affine=False": cfg.use_affine is False,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -129,10 +136,10 @@ class FramePipeline:
             self.tsdf_cfg = tsdf_ops.TsdfConfig.from_voxel_size(
                 self.bbox, cfg.voxel_size, cfg.tsdf_limit, align=BRICK)
         vx, vy, vz = self.tsdf_cfg.res
-        if vx % 128 or vy % BRICK or vz % BRICK:
+        if vx % BRICK or vy % BRICK or vz % BRICK:
             raise NotImplementedError(
-                f"volume res {self.tsdf_cfg.res}: the torch port needs "
-                "16-aligned res with Vx % 128 == 0 (dense emit)")
+                f"volume res {self.tsdf_cfg.res}: the torch port needs a "
+                "16-aligned res (the brick-sparse path)")
         self.brick_grid = brick_ops.make_brick_grid(
             self.bbox, cfg.brick_size, cfg.voxel_size)
         self.pre_cfg = pp.PreprocessConfig(
@@ -146,36 +153,67 @@ class FramePipeline:
         else:
             self.max_bricks = min(nb_total, max(1024, nb_total // 4))
 
-        self._log(f"baking per-brick affine warp at {self.tsdf_cfg.res} ...")
-        self.affine = tsdf_affine.bake_affine(self.rig, self.tsdf_cfg, self.device)
-        err = float(self.affine.max_err.max())
-        if not (cfg.use_affine or err <= cfg.affine_tol):
-            raise NotImplementedError(
-                f"affine residual {err:.2e} > affine_tol {cfg.affine_tol}: the "
-                "dense-table integrator is not in the torch port yet")
-        self._log(f"  affine residual {err:.2e} (tol {cfg.affine_tol})")
+        self.affine = self.tables = None
+        if cfg.use_affine is not False:
+            self._log(f"baking per-brick affine warp at {self.tsdf_cfg.res} ...")
+            aff = tsdf_affine.bake_affine(self.rig, self.tsdf_cfg, self.device)
+            err = float(aff.max_err.max())
+            if cfg.use_affine or err <= cfg.affine_tol:
+                self.affine = aff
+                self._log(f"  affine residual {err:.2e} (tol {cfg.affine_tol})")
+            else:
+                self._log(f"  affine residual {err:.2e} > tol {cfg.affine_tol};"
+                          " falling back to the dense warp table")
+        if self.affine is None:
+            self._log(f"baking voxel->sensor warp tables at {self.tsdf_cfg.res} ...")
+            self.tables = tsdf_fast.tables_cached(self.rig, self.tsdf_cfg, self.device)
+        # dense emit: whole 128-voxel x-rows and the quadratic warp
+        self._dense_emit = self.affine is not None and vx % 128 == 0
         self._sensor_hw = None
-        self._warp = None
+        self._warp = self._drig = None
         self._win_off = None
         self._cull_bake = None
         self._wy = self._wx = self._xstride = None
 
     # -- session bakes (at the first frame's sensor size) -----------------
 
+    def _bake_warp(self, h: int, w: int):
+        """The pixel-warp tiers (the JAX pipeline's ``_get_warp``, with its
+        log lines): affine, else piecewise, else None (the gather tier)."""
+        cfg = self.cfg
+        if not cfg.use_warp:
+            return None
+        self._log(f"baking pixel warp at {h}x{w} ...")
+        warp = bake_pixel_warp(self.rig, h, w, self.device)
+        if max(warp.max_err_xyz, warp.max_err_uv) <= cfg.warp_tol:
+            return warp
+        self._log(f"  cv volumes not affine in depth (residual "
+                  f"xyz={warp.max_err_xyz:.2e} uv={warp.max_err_uv:.2e} > "
+                  f"{cfg.warp_tol}); trying piecewise warp")
+        warp = bake_piecewise_warp(self.rig, h, w, cfg.warp_knots, self.device)
+        res = (f"  piecewise warp ({cfg.warp_knots} knots) residual "
+               f"xyz={warp.max_err_xyz:.2e} uv={warp.max_err_uv:.2e}")
+        if max(warp.max_err_xyz, warp.max_err_uv) > cfg.pw_warp_tol:
+            self._log(f"{res} > {cfg.pw_warp_tol}; using exact gather path")
+            return None
+        self._log(res)
+        return warp
+
     def _session(self, h: int, w: int) -> None:
         if self._sensor_hw == (h, w):
             return
-        self._log(f"baking pixel warp at {h}x{w} ...")
-        warp = bake_pixel_warp(self.rig, h, w, self.device)
-        if max(warp.max_err_xyz, warp.max_err_uv) > self.cfg.warp_tol:
-            raise NotImplementedError(
-                f"cv volumes not affine in depth (residual xyz="
-                f"{warp.max_err_xyz:.2e} uv={warp.max_err_uv:.2e} > "
-                f"{self.cfg.warp_tol}): the piecewise warp for distorted rigs "
-                "is not in the torch port yet")
-        self._warp = warp
+        self._warp = self._bake_warp(h, w)
+        # the gather tier reads the cv volumes every frame
+        self._drig = device_rig(self.rig, self.device, volumes=self._warp is None)
+        if self.affine is None:
+            self._win_off = win_offsets_pallas(self.tables, h, w)
+            self._sensor_hw = (h, w)
+            return
         self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
-        self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(self.affine, w)
+        if self._dense_emit:
+            self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(self.affine, w)
+        else:
+            self._wx, self._xstride, clip_x = WX2, XSTRIDE2, 0.0
         self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
                   f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
         self._win_off = tsdf_affine.win_offsets_affine(
@@ -215,7 +253,13 @@ class FramePipeline:
         return frames, mask16, occupied, n_occ, cls
 
     def _integrate(self, frames, mask16, cls):
-        """2integrate: fused TSDF + z-major color volumes (bf16)."""
+        """2integrate: fused TSDF + color volumes, by the integrator tier."""
+        if self.affine is None:
+            return integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
+                                    self.max_bricks, self._win_off)
+        if not self._dense_emit:
+            return integrate_affine(frames, self.affine, self.tsdf_cfg, mask16,
+                                    self.max_bricks, self._win_off, self._wy)
         return integrate_dense(
             frames, self.affine, self.tsdf_cfg, mask16, self.max_bricks,
             self._win_off, self._wy, self._wx, self._xstride, cls)
@@ -229,7 +273,7 @@ class FramePipeline:
         return rmf.render_fast(
             vol, cvol, cam, self.bbox, float(self.tsdf_cfg.limit), axis, flip,
             rm.RenderParams(shade_mode=cfg.shade_mode),
-            rmf.SweepConfig(res=self._sweep_res()), occ)
+            rmf.SweepConfig(res=self._sweep_res()), occ, zmajor=self._dense_emit)
 
     def _fill(self, color, depth):
         """holefill: inpaint pyramid + colorfill resolve."""

@@ -13,9 +13,10 @@ import torch
 
 from rgbd_recon_torch import native
 from rgbd_recon_torch.calibration import synthetic
-from rgbd_recon_torch.ops import bricks, preprocess as pp, tsdf_dense
+from rgbd_recon_torch.ops import bricks, preprocess as pp, tsdf_dense, tsdf_persist, tsdf_sparse
 from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
-from rgbd_recon_torch.ops.warp import warp_screen_cuda, warp_screen_plain, warp_windows
+from rgbd_recon_torch.ops.warp import (piecewise_eval_cuda, piecewise_eval_plain,
+                                       warp_screen_cuda, warp_screen_plain, warp_windows)
 from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
 from rgbd_recon_torch.utils.math import Bbox
 
@@ -29,13 +30,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _small_pipeline(device):
+def _small_pipeline(device, n=128, **over):
     bbox = Bbox.default()
     rig, cams = synthetic.synthetic_rig(num_sensors=3, bbox=bbox, fwd_res=(48, 64, 48),
                                         inv_res=(48, 48, 48), width=256, height=208)
     depth, color = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox))
-    cfg = PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
-                         voxel_size=float(np.max(bbox.size) / 128), sweep_res=(256, 256))
+    cfg = PipelineConfig(render_width=320, render_height=240, tsdf_res=(n, n, n),
+                         voxel_size=float(np.max(bbox.size) / n), sweep_res=(256, 256),
+                         **over)
     pipe = FramePipeline(rig, cfg, device=device)
     mv, proj = pipe.default_camera()
     return pipe, depth, color, mv, proj
@@ -104,18 +106,76 @@ def test_integrate_dense_cuda(dev):
     assert pocc > 1000 and abs(occ - pocc) <= max(100, 0.002 * pocc)
 
 
+def test_piecewise_eval_cuda(dev):
+    """Bit for bit: the same float32 operations in the same order, every
+    one rounded on its own (no FMA contraction)."""
+    rng = np.random.default_rng(4)
+    m, k, h, w, c, s = 5, 2, 61, 97, 3, 16
+    d = torch.from_numpy(rng.uniform(-0.1, 1.1, (m, k, h, w)).astype(np.float32)).to(dev)
+    dc = torch.clamp(d, 0.02, 0.98).contiguous()
+    cc = ((dc - 0.02) / 0.96 * (s - 1)).contiguous()
+    a, b = (torch.from_numpy(rng.standard_normal((k, h, w, c)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    r = torch.from_numpy(rng.standard_normal((k, c, s, h, w)).astype(np.float32) * 1e-2
+                         ).to(dev).to(torch.bfloat16)
+    before = native.KERNELS["piecewise_eval"].launches
+    got = piecewise_eval_cuda(dc, cc, a, b, r)
+    assert native.KERNELS["piecewise_eval"].launches == before + 1
+    assert torch.equal(got, piecewise_eval_plain(dc, cc, a, b, r))
+
+
+def _integrator_args(pipe, depth, color, mv, proj):
+    d, c, *_ = pipe._inputs(depth, color, mv, proj)
+    frames, mask16, _, _, _ = pipe._pre(d, c)
+    idx, _, count = occupied_list(mask16, pipe.max_bricks)
+    return pack_frames(frames), idx, count
+
+
+def _assert_integrator_bound(vol, cvol, pvol, pcvol):
+    """tests/test_tsdf_affine.py:109-116 / tests/test_tsdf_pallas.py:40-47."""
+    v, pv = vol.float(), pvol.float()
+    assert ((v - pv).abs() > 1e-4).float().mean() < 1e-4
+    assert ((cvol.float() - pcvol.float()).abs().amax(dim=-1) > 1e-2).float().mean() < 1e-3
+    occ, pocc = int((v > -0.01 + 1e-9).sum()), int((pv > -0.01 + 1e-9).sum())
+    assert pocc > 1000 and abs(occ - pocc) <= max(100, 0.002 * pocc)
+
+
+def test_integrate_affine_cuda(dev):
+    """Kernel 6 on a 96^3 volume (Vx % 128 != 0), at the bound between
+    formulations."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev, n=96)
+    packed, idx, count = _integrator_args(pipe, depth, color, mv, proj)
+    args = (packed, pipe.affine.coeffs, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
+            pipe._wy, pipe.tsdf_cfg.limit)
+    vol, cvol = tsdf_persist.integrate_affine_cuda(*args)
+    assert vol.dtype == torch.float32 and cvol.shape == (96, 96, 96, 4)
+    _assert_integrator_bound(vol, cvol, *tsdf_persist.integrate_affine_plain(*args))
+
+
+def test_integrate_sparse_cuda(dev):
+    """Kernel 7 (the table tier, use_affine=False), at the bound between
+    formulations."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev, use_affine=False)
+    packed, idx, count = _integrator_args(pipe, depth, color, mv, proj)
+    args = (packed, pipe.tables.pos_blocked, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
+            pipe.tsdf_cfg.limit)
+    vol, cvol = tsdf_sparse.integrate_sparse_cuda(*args)
+    _assert_integrator_bound(vol, cvol, *tsdf_sparse.integrate_sparse_plain(*args))
+
+
 def test_slice_cuda_matches_cpu(dev):
     """The whole step on the card vs the plain versions on the CPU: hit
     agreement > 0.995, color PSNR > 30 dB, depth median < 2e-3 (the
     render-parity bounds of tests/test_golden.py:65-69), and every kernel
-    launched."""
+    of the pinhole path launched."""
     outs = {}
     for device in (dev, torch.device("cpu")):
         pipe, depth, color, mv, proj = _small_pipeline(device)
         before = {k: kern.launches for k, kern in native.KERNELS.items()}
         o = pipe.step(depth, color, mv, proj)
-        if device.type == "cuda":
-            assert all(native.KERNELS[k].launches > before[k] for k in before)
+        if device.type == "cuda":   # the pinhole path's four kernels
+            assert all(native.KERNELS[k].launches > before[k] for k in
+                       ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_dense"))
         outs[device.type] = [t.float().cpu().numpy() for t in (o.color, o.depth, o.hit)]
     (gc, gd, gh), (cc, cd, ch) = outs["cuda"], outs["cpu"]
     gh, ch = gh > 0.5, ch > 0.5

@@ -83,15 +83,55 @@ def _holefill_inputs(rng, h=96, w=128, hole_frac=0.5):
     return c, d
 
 
+def _bf16_ulp(x):
+    """The bf16 spacing at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+def _colorfill_bound(colors, h, w, atol):
+    """Per-pixel, per-channel deviation bound between two colorfills of
+    pyramids that agree to a few float32 ulps, and the blended-pixel mask.
+
+    The pyramid levels are float32 sums of up to 16 taps; XLA sums them in
+    an order that depends on the host CPU's vector width, so a level value
+    may sit one float32 ulp off the port's. Pixels whose colour is taken
+    from one LOD (``first == 0``) carry that over unchanged: atol. Blended
+    pixels (``first > 0``) read the two next-coarser LODs through
+    ``resize2d_gl``, which rounds every level value to bf16: a value within
+    a float32 ulp of a bf16 rounding midpoint rounds to neighbouring bf16
+    values on the two sides, one bf16 ulp apart, and the first resize
+    stage rounds its intermediate to bf16 once more. So a blended pixel
+    may deviate by the blend ``|w1| u1 + |w2| u2`` (tsdf_colorfill.fs
+    weights) of two bf16 ulps at each blended level's largest magnitude."""
+    n = len(colors)
+    ys, xs = np.arange(h), np.arange(w)
+    valid = np.stack([c[(ys * c.shape[0]) // h][:, (xs * c.shape[1]) // w][..., 3] > 0
+                      for c in colors])
+    first = np.where(valid.any(0), np.argmax(valid, 0), n - 1)
+    ulp = np.stack([_bf16_ulp(np.abs(c).reshape(-1, 4).max(0)) for c in colors])  # [n, 4]
+    s = ((np.arange(w, dtype=np.float32) + 0.5) / w)[None, :]
+    t = ((np.arange(h, dtype=np.float32) + 0.5) / h)[:, None]
+    w1 = np.sqrt(s * s + t * t)
+    w2 = 1.0 - w1
+    u1 = ulp[np.minimum(first + 1, n - 1)]
+    u2 = ulp[np.minimum(first + 2, n - 1)]
+    blend = 2.0 * (np.abs(w1)[..., None] * u1 + np.abs(w2)[..., None] * u2)
+    blended = first > 0
+    return np.where(blended[..., None], blend + atol, atol), blended
+
+
 @pytest.mark.parametrize("ref", ["colorfill", "colorfill_mm"])
 def test_holefill_matches_jax(ref):
     """The port's 16-tap pyramid and per-pixel colorfill vs the JAX package.
-    Against ``colorfill`` (the same formulation): pyramids atol 1e-6, the
-    filled image atol 1e-5 (the LOD upsamples round to bf16 on both sides
-    and sum in another order). Against ``colorfill_mm`` (the TPU form,
-    which resolves the blend on coarser grids; not ported): the bounds of
-    tests/test_inpaint_mm.py:50-61 — non-hole and background pixels
-    exact, filled pixels a median deviation < 0.06 and > 90% under 0.25."""
+    Against ``colorfill`` (the same formulation): pyramids atol 1e-6; the
+    filled image atol 1e-5 where a pixel takes one LOD, and within the
+    bf16 bound of ``_colorfill_bound`` where it blends two upsampled LODs
+    (the cause of this case's host-dependent failures at a single atol of
+    1e-5). Against ``colorfill_mm`` (the TPU form, which resolves the blend
+    on coarser grids; not ported): the bounds of
+    tests/test_inpaint_mm.py:50-61 — non-hole and background pixels exact,
+    filled pixels a median deviation < 0.06 and > 90% under 0.25."""
     c, d = _holefill_inputs(np.random.default_rng(12))
     pc, pd = inpaint.build_pyramid(torch.from_numpy(c), torch.from_numpy(d), 5)
     jpc, jpd = jinpaint.build_pyramid(jnp.asarray(c), jnp.asarray(d), 5, mm=False)
@@ -99,8 +139,13 @@ def test_holefill_matches_jax(ref):
     if ref == "colorfill":
         for a, b in zip(pc + pd, jpc + jpd):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
-        np.testing.assert_allclose(got, np.asarray(jinpaint.colorfill(jpc, jpd)),
-                                   atol=1e-5, rtol=0)
+        want = np.asarray(jinpaint.colorfill(jpc, jpd))
+        bound, blended = _colorfill_bound([x.numpy() for x in pc], *c.shape[:2], atol=1e-5)
+        dev = np.abs(got - want)
+        over = dev.max(-1) > 1e-5
+        report = (f"max deviation {dev.max():.3e}, {int(over.sum())} pixels above 1e-5, "
+                  f"{int((over & ~blended).sum())} of them not blended")
+        assert np.all(dev <= bound), report
         return
     want = np.asarray(jinpaint.colorfill_mm(jpc, jpd))
     hole = c[..., 3] <= 0.0

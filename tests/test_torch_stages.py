@@ -122,10 +122,10 @@ def test_session_bakes_match_jax(ref):
     """The port's bakes vs the JAX bakes. The affine fit is held by the
     warp it predicts over each valid (sensor, brick): a median deviation
     under 1e-5 (normalized units) and under 2% of pairs above 1e-3 — the
-    float32 normal equations of frustum-edge bricks with few clean voxels
-    are ill-conditioned, so both sides' rounding noise is amplified there
-    in extrapolated voxels (measured: 19 of 1508 pairs above 1e-3; see
-    ROADMAP queue 3). Window sizes exact. Window origins, cull cells and
+    normal equations of frustum-edge bricks with few clean voxels are
+    ill-conditioned, so the JAX bake's float32 solve amplifies its rounding
+    there in extrapolated voxels (measured: 20 of 1508 pairs above 1e-3
+    against the port's float64 solve; see ROADMAP queue 3). Window sizes exact. Window origins, cull cells and
     cull depth bands (within 1e-4) are functions of the fit's footprint
     hull, so they follow the fit: each may differ on under 2% of entries."""
     aff = tsdf_affine.bake_affine(from_jax(ref.rig), TsdfConfig((N, N, N), LIMIT))
@@ -280,11 +280,13 @@ def test_slice_matches_jax(ref):
 
 
 @pytest.mark.parametrize("change", [
-    dict(fused=True), dict(use_affine=False), dict(use_pallas=False),
-    dict(tsdf_res=(96, 96, 96)), dict(fast_path=False),
+    dict(fused=True), dict(use_pallas=False),
+    dict(tsdf_res=(100, 100, 100)), dict(fast_path=False),
 ])
 def test_pipeline_rejects_what_it_does_not_implement(small_rig, change):
-    """Options outside the slice raise instead of being ignored."""
+    """Options outside the port raise instead of being ignored: fused mode,
+    the plain-XLA integrators and the reference path that volumes which
+    are not 16-aligned take."""
     from rgbd_recon_torch.calibration.rig import RigCalibration
 
     rig = RigCalibration(*(np.asarray(getattr(small_rig["rig"], f))
