@@ -29,7 +29,14 @@ a result line):
               the bake seconds, kernel 5 (piecewise_eval) against its plain
               version at M=1 and M=5, and the path with kernels 1-5;
 5. block      the pinhole rig at 240^3 (Vx % 128 = 112: the block-major
-              integrator): kernel 6 (integrate_affine) and its path;
+              integrator): kernel 6 (integrate_affine) and its path; on the
+              path's recorded kernel-6 arguments, kernel 6 in raw mode
+              (block-major blocks; held against its plain version on the
+              visited blocks, with its own bound) then kernel 8
+              (scatter_dense) must equal kernel 6's voxel-order output bit
+              for bit, and kernel 8 its plain version exactly; then the
+              assembly path (counters to 0,
+              integrate_affine(raw=True) + scatter_dense, counters read);
 6. table      the pinhole rig at 256^3 with use_affine=False (the dense warp
               table): kernel 7 (integrate_sparse) and its path;
 7. gather     one small distorted frame with pw_warp_tol below the piecewise
@@ -39,6 +46,13 @@ a result line):
               masks, colors and depths must agree at the render-parity
               bounds the repo's tests use.
 
+Every kernel entry carries its time and, where one PyTorch call computes
+the same function, that call's time (both from a CUDA graph of back-to-back
+calls, the device's time alone; the kernel's eager time is printed too),
+its plain version's time (eager: some plain versions sync with the host),
+and the bound: the larger of its bytes over 3.35 TB/s and its fp32
+operations over 67 TFLOP/s (H100 SXM data sheet), from this run's shapes
+and occupied counts.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and the result object.
 """
@@ -56,6 +70,13 @@ NUM_FRAMES = 4
 PINHOLE_FRAMES = 2
 DISTORT = 0.004            # bench.py BENCH_DISTORT: ~4 mm bake deformation
 PATH_KERNELS = ("bilateral_accum", "mark_bricks", "warp_screen")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
+FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
+# fp32 operations of one bilateral tap, an FMA counted as two: s - dc, the
+# FMA 1 - dist * inv, gs * gr, wr += gr, wa += ws, the FMA bf += ws * s (the
+# clamp at 0 is a max, not counted)
+TAP_OPS = 1 + 2 + 1 + 1 + 1 + 2
+FUSE_OPS = 130             # per voxel and sensor: quadratic warp 60, taps 30, fusion 40
 
 
 def _fail(msg: str) -> int:
@@ -89,16 +110,31 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, graph: bool = False) -> float:
+    """Mean ms of one of ``reps`` back-to-back calls (CUDA events, after a
+    warm-up call). ``graph``: the calls are captured once in a CUDA graph
+    and replayed, so the time is the device's alone; eagerly, a call that
+    takes the device less time than the host needs to enqueue it (the
+    wrapper's checks and allocations) is timed at the host's pace."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    run = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        run, reps_run = g.replay, 1
+    else:
+        reps_run = reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(reps_run):
+        run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -160,6 +196,13 @@ def _bench_config(bbox, n: int, **over):
                              brick_size=0.1, num_lods=6, **over)
 
 
+def _bound(nbytes: float, ops: float):
+    """(least ms for the work, what bounds it) on an H100 SXM."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _errs(a, b):
     import torch
 
@@ -170,6 +213,7 @@ def _errs(a, b):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         return _fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
@@ -178,7 +222,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
     from rgbd_recon_torch import native
-    from rgbd_recon_torch.ops import bricks, preprocess as pp, raymarch_fast as rmf
+    from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp, raymarch_fast as rmf
     from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse, warp as warp_ops
     from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
     from rgbd_recon_torch.runtime import pipeline as pl
@@ -203,15 +247,25 @@ def main() -> int:
     results = {}      # kernel entry -> measured numbers
     launches = {}     # kernel -> launches in the run of its own path
 
-    def report(name, route_src, replaces, err, tol_txt, ok, kern, plain, reps):
-        ms, plain_ms = _time_ms(kern, reps), _time_ms(plain, reps)
+    def report(name, route_src, replaces, err, tol_txt, ok, kern, plain, reps, nbytes, ops,
+               library=None):
+        """Time a kernel, its plain version and its library yardstick on the
+        same inputs; ``nbytes``/``ops``: the work of this call (each input
+        read once, each output written once)."""
+        ms, eager_ms = _time_ms(kern, reps, graph=True), _time_ms(kern, reps)
+        plain_ms = _time_ms(plain, reps)
+        lib_ms = _time_ms(library, reps, graph=True) if library is not None else None
+        bound_ms, bound_by = _bound(nbytes, ops)
         print(f"kernel {name}: max_abs_err {err['max']:.3e} p99.5 {err['p995']:.3e} "
-              f"({tol_txt}) -> {'ok' if ok else 'FAIL'}; {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms")
+              f"({tol_txt}) -> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (graph replay; "
+              f"eager {eager_ms:.4f}) vs plain {plain_ms:.4f} ms (eager), library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G fp32 ops)")
         if not ok:
             raise RuntimeError(f"kernel {name} disagrees with its plain version")
-        results[name] = dict(source=route_src, replaces=replaces,
-                             max_abs_err=err["max"], ms=ms, plain_ms=plain_ms)
+        results[name] = dict(source=route_src, replaces=replaces, max_abs_err=err["max"],
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib_ms)
 
     def warm_up(label, pipe, frame, mv, proj, wrap):
         """One step with Recorders on the (module, name) pairs of ``wrap``."""
@@ -265,7 +319,8 @@ def main() -> int:
         print(f"{label}: outputs: occupied bricks {n_occ} / {pipe.max_bricks}, coverage "
               f"{cov:.4f}, occupied ratio {float(outs[-1].occupied_ratio):.4f}")
 
-    def check_integrator(name, source, replaces, run_kernel, run_plain, limit, reps):
+    def check_integrator(name, source, replaces, run_kernel, run_plain, limit, reps, nbytes,
+                         ops):
         """An integration kernel against its plain version at the repo's
         bound between formulations (tests/test_tsdf_affine.py:109-116)."""
         vol, cvol = run_kernel()
@@ -280,7 +335,15 @@ def main() -> int:
               f"occupied voxels {occ} vs {pocc}")
         report(name, source, replaces, _errs(v, pv),
                "<1e-4 of voxels off >1e-4, <1e-3 color off >1e-2, occupancy within 0.2%",
-               ok, run_kernel, run_plain, reps)
+               ok, run_kernel, run_plain, reps, nbytes, ops)
+
+    def integrator_work(packed, n_occ, res, out_bytes, in_bytes_per_brick, ops_per_voxel):
+        """Bytes and fp32 operations of one integration: the packed frames,
+        the occupied bricks' per-sensor inputs, the dense outputs."""
+        k = packed.shape[0]
+        vox = res[0] * res[1] * res[2]
+        nbytes = packed.numel() * 4 + n_occ * (4 + k * in_bytes_per_brick) + vox * out_bytes
+        return nbytes, n_occ * 4096 * k * ops_per_voxel
 
     # -- 3. pinhole 256^3 ---------------------------------------------------
     t0 = time.perf_counter()
@@ -307,7 +370,8 @@ def main() -> int:
            "rgbd_recon_tpu/ops/preprocess_pallas.py:75",
            _errs(torch.stack(got), torch.stack(want)), "atol 2e-4 rtol 2e-5",
            ok, lambda: pp.bilateral_accum(d_in, lim_in),
-           lambda: pp.bilateral_accum_plain(d_in, lim_in), 20)
+           lambda: pp.bilateral_accum_plain(d_in, lim_in), 20,
+           16 * d_in.numel() + lim_in.numel() * 4, d_in.numel() * 169 * TAP_OPS)
 
     # mark_bricks: the world points of all 4 sensors, integer-exact
     (w_in, v_in, grid), _ = recs["mark_bricks"].calls[0]
@@ -317,21 +381,46 @@ def main() -> int:
            "rgbd_recon_tpu/ops/bricks_pallas.py:100", _errs(got, want), "exact",
            bool(torch.equal(got, want)) and int(got.sum()) > 0,
            lambda: bricks.mark_bricks(w_in, v_in, grid),
-           lambda: bricks.mark_bricks_plain(w_in, v_in, grid), 20)
+           lambda: bricks.mark_bricks_plain(w_in, v_in, grid), 20,
+           w_in.numel() * 4 + v_in.numel() + got.numel() * 4, v_in.numel() * 20)
 
-    # warp_screen: registration (sensor 0 color) and the sweep->screen warp
+    # warp_screen: registration (sensor 0 color) and the sweep->screen warp;
+    # yardstick F.grid_sample (bilinear, border, align_corners) on the same
+    # image in NCHW, the same function wherever no tile's window clamp bites
     for key, label in (("warp_screen_registration", "registration"),
                        ("warp_screen_screen", "screen")):
-        (img, fy, fx, tile), _ = recs[key].calls[0]
-        wh, y0, x0 = warp_ops.warp_windows(img.shape[0], img.shape[1], fy, fx, tile)
-        got = warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0)
-        want = warp_ops.warp_screen_plain(img, fy, fx, tile, wh, y0, x0)
-        report(f"warp_screen[{label} {tuple(img.shape)}->{tuple(fy.shape)}]",
+        (img, fy, fx, tile), kw = recs[key].calls[0]
+        ch = kw.get("channels")
+        ti, si, cp = img.shape
+        c = ch or cp
+        wh, y0, x0 = warp_ops.warp_windows(ti, si, fy, fx, tile)
+        got = warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0, ch)
+        want = warp_ops.warp_screen_plain(img, fy, fx, tile, wh, y0, x0, ch)
+        inp = img[..., :c].permute(2, 0, 1)[None].contiguous()
+        grid_n = torch.stack([fx / (si - 1) * 2 - 1, fy / (ti - 1) * 2 - 1], dim=-1)[None]
+
+        def grid_sample(inp=inp, grid_n=grid_n):
+            return F.grid_sample(inp, grid_n, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+        nty, ntx = fy.shape[0] // tile[0], fy.shape[1] // tile[1]
+        oy, ox = (o.reshape(nty, ntx).repeat_interleave(tile[0], 0)
+                  .repeat_interleave(tile[1], 1).float() for o in (y0, x0))
+        ry, rx = fy - oy, fx - ox
+        clamped = (ry < 0) | (ry > wh - 1) | (rx < 0) | (rx > warp_ops.WXW - 1)
+        dev_gs = (grid_sample()[0].permute(1, 2, 0) - got).abs().amax(dim=-1)
+        print(f"  warp_screen[{label}]: the window clamp moves {int(clamped.sum())} of "
+              f"{clamped.numel()} pixels; grid_sample vs kernel elsewhere: max "
+              f"{float(dev_gs[~clamped].max()):.3e}")
+        h, w = fy.shape
+        report(f"warp_screen[{label} {(ti, si, c)}->{tuple(fy.shape)}]",
                "rgbd_recon_torch/csrc/warp_screen.cu",
                "rgbd_recon_tpu/ops/warp_pallas.py:116", _errs(got, want),
                "atol 1e-5 rtol 1e-5", bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5)),
-               lambda: warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0),
-               lambda: warp_ops.warp_screen_plain(img, fy, fx, tile, wh, y0, x0), 20)
+               lambda: warp_ops.warp_screen_cuda(img, fy, fx, tile, wh, y0, x0, ch),
+               lambda: warp_ops.warp_screen_plain(img, fy, fx, tile, wh, y0, x0, ch), 20,
+               ti * si * c * 4 + h * w * 8 + y0.numel() * 8 + h * w * c * 4,
+               h * w * (10 + 6 * c), library=grid_sample)
 
     # integrate_dense: the warm-up frame's occupied bricks at 256^3
     (fr, aff, tcfg, m16, maxb, woff, wy, wx, xs, cls), _ = recs["integrate_dense"].calls[0]
@@ -342,7 +431,9 @@ def main() -> int:
     check_integrator("integrate_dense", "rgbd_recon_torch/csrc/integrate_dense.cu",
                      "rgbd_recon_tpu/ops/tsdf_dense.py:452",
                      lambda: tsdf_dense.integrate_dense_cuda(*iargs),
-                     lambda: tsdf_dense.integrate_dense_plain(*iargs), tcfg.limit, 5)
+                     lambda: tsdf_dense.integrate_dense_plain(*iargs), tcfg.limit, 5,
+                     *integrator_work(iargs[0], int(count), tcfg.res, 10, 4 * 40 + 8 + 4,
+                                      FUSE_OPS))
 
     drive("pinhole", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_dense",),
           PINHOLE_FRAMES, cfg.tsdf_res)
@@ -389,7 +480,10 @@ def main() -> int:
                "bitwise: the same float32 operations, no FMA contraction",
                bool(torch.equal(got, want)),
                lambda: warp_ops.piecewise_eval_cuda(dc, cc, a, b, r),
-               lambda: warp_ops.piecewise_eval_plain(dc, cc, a, b, r), 20)
+               lambda: warp_ops.piecewise_eval_plain(dc, cc, a, b, r), 20,
+               # dc, cc, A, B, the two knots that bracket each pixel's depth, out
+               8 * dc.numel() + 8 * a.numel() + min(r.shape[2], 2 * m) * r[:, :, 0].numel() * 2
+               + got.numel() * 4, got.numel() * 12)
     drive("distorted", pipe, dframes, mv, proj,
           PATH_KERNELS + ("integrate_dense", "piecewise_eval"), NUM_FRAMES, dcfg.tsdf_res)
     del pipe, recs, calls, D, a, b, r, dc, cc, got, want, dframes
@@ -408,10 +502,95 @@ def main() -> int:
     check_integrator("integrate_affine", "rgbd_recon_torch/csrc/integrate_dense.cu",
                      "rgbd_recon_tpu/ops/tsdf_persist.py:787",
                      lambda: tsdf_persist.integrate_affine_cuda(*aargs),
-                     lambda: tsdf_persist.integrate_affine_plain(*aargs), tcfg.limit, 5)
+                     lambda: tsdf_persist.integrate_affine_plain(*aargs), tcfg.limit, 5,
+                     *integrator_work(aargs[0], int(count), tcfg.res, 12, 4 * 40 + 8,
+                                      FUSE_OPS))
+
+    # kernel 6 in raw mode (block-major, no clear) against its plain
+    # version on the visited blocks; its work: the inputs as above, the
+    # occupied blocks and the visited flags written
+    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*aargs, raw=True)
+    pvbm, pcbm, pvisited = tsdf_persist.integrate_affine_plain(*aargs, raw=True)
+    vis = visited.nonzero().squeeze(1)
+    v, pv = vbm[vis], pvbm[vis]
+    off = float(((v - pv).abs() > 1e-4).float().mean())
+    cd = float(((cbm[vis].float() - pcbm[vis].float()).abs().amax(dim=1) > 1e-2).float().mean())
+    n_occ = int(count)
+    print(f"  integrate_affine[raw]: {vis.numel()} visited blocks; voxels off >1e-4: "
+          f"{off:.2e}, color off >1e-2: {cd:.2e}")
+    report("integrate_affine[raw]", "rgbd_recon_torch/csrc/integrate_dense.cu",
+           "rgbd_recon_tpu/ops/tsdf_persist.py:787", _errs(v, pv),
+           "visited as the plain version's; on them <1e-4 of voxels off >1e-4, <1e-3 color "
+           "off >1e-2", torch.equal(visited, pvisited) and vis.numel() == n_occ and off < 1e-4
+           and cd < 1e-3,
+           lambda: tsdf_persist.integrate_affine_cuda(*aargs, raw=True),
+           lambda: tsdf_persist.integrate_affine_plain(*aargs, raw=True), 5,
+           aargs[0].numel() * 4 + n_occ * (4 + aargs[0].shape[0] * (4 * 40 + 8))
+           + n_occ * 4096 * 12 + visited.numel(), n_occ * 4096 * aargs[0].shape[0] * FUSE_OPS)
+    del pvbm, pcbm, pvisited, v, pv
+
+    # kernel 6 in raw mode, then kernel 8: bit for bit the voxel-order
+    # output of kernel 6; kernel 8 exactly its plain version
+    dense_v, dense_c = assemble.scatter_dense_cuda(vbm, cbm, idx, count, tcfg.res, tcfg.limit)
+    want_v, want_c = tsdf_persist.integrate_affine_cuda(*aargs)
+    same = (torch.equal(dense_v, want_v) and torch.equal(dense_c.permute(1, 2, 3, 0), want_c)
+            and int(visited.sum()) == int(count))
+    print(f"  integrate_affine raw + scatter_dense bit for bit the voxel-order output: "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise RuntimeError("integrate_affine raw + scatter_dense != integrate_affine")
+    pv, pc = assemble.scatter_dense_plain(vbm, cbm, idx, count, tcfg.res, tcfg.limit)
+    n8 = int(count)
+    nbz, nby, nbx = (r // 16 for r in tcfg.res[::-1])
+    sel = idx[:n8].long()
+    bz, by, bx = sel // (nby * nbx), (sel // nbx) % nby, sel % nbx
+
+    def index_put():
+        """The clear plus one index_select + index_put_ per array (indices
+        prepared outside the timing)."""
+        v = torch.full((nbz, 16, nby, 16, nbx, 16), -tcfg.limit, device=dev)
+        c = torch.zeros((4, nbz, 16, nby, 16, nbx, 16), dtype=torch.bfloat16, device=dev)
+        v.permute(0, 2, 4, 1, 3, 5).index_put_(
+            (bz, by, bx), vbm.index_select(0, sel).view(n8, 16, 16, 16))
+        c.permute(1, 3, 5, 0, 2, 4, 6).index_put_(
+            (bz, by, bx), cbm.index_select(0, sel).view(n8, 4, 16, 16, 16))
+        return v, c
+
+    lv, lc = index_put()
+    if not (torch.equal(lv.view(-1), dense_v.view(-1)) and torch.equal(lc.view(-1),
+                                                                       dense_c.view(-1))):
+        raise RuntimeError("the index_put_ yardstick of scatter_dense computes another function")
+    vox = tcfg.res[0] * tcfg.res[1] * tcfg.res[2]
+    report("scatter_dense", "rgbd_recon_torch/csrc/scatter_dense.cu",
+           "rgbd_recon_tpu/ops/assemble_pallas.py:116", _errs(dense_v, pv),
+           "exact (a copy)",
+           bool(torch.equal(dense_v, pv)) and bool(torch.equal(dense_c, pc)),
+           lambda: assemble.scatter_dense_cuda(vbm, cbm, idx, count, tcfg.res, tcfg.limit),
+           lambda: assemble.scatter_dense_plain(vbm, cbm, idx, count, tcfg.res, tcfg.limit),
+           20, n8 * 4096 * 12 + n8 * 4 + vox * 12, 0, library=index_put)
+    del vbm, cbm, dense_v, dense_c, want_v, want_c, pv, pc, lv, lc
+
     drive("block-major", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_affine",),
           NUM_FRAMES, bcfg.tsdf_res)
-    del pipe, recs, aargs, fr, aff, m16, woff
+
+    # the block-major assembly path through the public entry points:
+    # kernel 6 in raw mode, then kernel 8
+    for k in native.KERNELS.values():
+        k.launches = 0
+    vbm, cbm, visited = tsdf_persist.integrate_affine(fr, aff, tcfg, m16, maxb, woff, wy,
+                                                      raw=True)
+    idx, _, count = occupied_list(m16, maxb)
+    dense_v, dense_c = assemble.scatter_dense(vbm, cbm, idx, count, tcfg.res, tcfg.limit)
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in native.KERNELS.items()}
+    print(f"assembly: launches of integrate_affine(raw=True) + scatter_dense: {counts}")
+    if counts["integrate_affine"] == 0 or counts["scatter_dense"] == 0:
+        raise RuntimeError(f"the assembly path did not launch kernels 6 and 8: {counts}")
+    launches["scatter_dense"] = counts["scatter_dense"]
+    launches["integrate_affine[raw]"] = counts["integrate_affine"]
+    if not (bool(torch.isfinite(dense_v).all()) and int((dense_v > -tcfg.limit).sum()) > 0):
+        raise RuntimeError("the assembled volume is not finite or holds no surface")
+    del pipe, recs, aargs, fr, aff, m16, woff, vbm, cbm, dense_v, dense_c
 
     # -- 6. table integrator: pinhole rig at 256^3, use_affine=False (kernel 7)
     tcfg_p = _bench_config(bbox, n, use_affine=False)
@@ -432,7 +611,9 @@ def main() -> int:
     check_integrator("integrate_sparse", "rgbd_recon_torch/csrc/integrate_sparse.cu",
                      "rgbd_recon_tpu/ops/tsdf_pallas.py:437",
                      lambda: tsdf_sparse.integrate_sparse_cuda(*sargs),
-                     lambda: tsdf_sparse.integrate_sparse_plain(*sargs), tcfg.limit, 5)
+                     lambda: tsdf_sparse.integrate_sparse_plain(*sargs), tcfg.limit, 5,
+                     *integrator_work(sargs[0], int(count), tcfg.res, 20, 4096 * 12 + 8,
+                                      FUSE_OPS - 60))
     drive("table", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_sparse",),
           NUM_FRAMES, tcfg_p.tsdf_res)
     del pipe, recs, sargs, fr, tables, m16, woff
@@ -485,8 +666,10 @@ def main() -> int:
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": launches[name.split("[")[0]], "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "launches": launches[name if name in launches else name.split("[")[0]],
+         "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,7 @@ namespace rr {
 constexpr int BRICK = 16;
 constexpr int MAXK = 8;
 constexpr int THREADS = BRICK * BRICK;
+constexpr int B3 = BRICK * BRICK * BRICK;
 // silhouette gate: (1 - sil) sampled LINEAR must stay under 1 - 0.998
 // (tsdf_pallas.py SIL_PL), the constant rounded from double as in the
 // reference

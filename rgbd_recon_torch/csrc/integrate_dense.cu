@@ -1,5 +1,5 @@
 // Brick-sparse TSDF + color fusion from the per-brick quadratic warp, in
-// two output layouts (one device body, a template mode):
+// three output layouts (one device body, a template store mode):
 //
 //   rr_integrate_dense   replaces rgbd_recon_tpu/ops/tsdf_dense.py::
 //                        integrate_dense_pallas (zmajor=True, bf16): TSDF
@@ -10,6 +10,13 @@
 //                        volumes with Vx % 128 != 0): TSDF f32 [Vz, Vy, Vx],
 //                        color bf16 [Vz, Vy, Vx, 4] in voxel order, every
 //                        sensor FULL, fixed 64-col windows at stride 16.
+//                        Given a visited buffer (raw mode, kBlockMajor) it
+//                        stores what the TPU kernel itself emits
+//                        (integrate_affine_pallas(raw=True)): TSDF f32
+//                        [NB, 32, 128] and color bf16 [NB, 4, 32, 128], one
+//                        z-major [lz, ly, lx] block per occupied brick, and
+//                        visited bool [NB]; nothing else is cleared (blocks
+//                        of unoccupied bricks keep whatever the buffer held).
 //
 // Fusion math tsdf_persist.py::fuse_chunk_v3 / _fuse_update (reference
 // tsdf_integration.vs:23-59, tsdf_raymarch.fs:295-320). For every voxel of
@@ -40,7 +47,9 @@ namespace {
 using namespace rr;
 constexpr int NBASIS = 10;
 
-template <bool kChannelsLast>
+enum Store { kZMajor, kChannelsLast, kBlockMajor };
+
+template <Store kStore>
 __global__ void __launch_bounds__(THREADS)
 integrate_quadratic_kernel(const float* __restrict__ packed,   // [K, H, W, 6]
                            const float* __restrict__ coeffs,   // [K, NB, 4, NBASIS]
@@ -48,13 +57,15 @@ integrate_quadratic_kernel(const float* __restrict__ packed,   // [K, H, W, 6]
                            const int* __restrict__ count,      // [1]
                            const int* __restrict__ win_off,    // [K, NB, 2] (y0, xb)
                            const int* __restrict__ cls,        // [K, NB] or null
-                           void* __restrict__ tsdf_out,        // bf16 | f32 [Vz, Vy, Vx]
-                           __nv_bfloat16* __restrict__ color,  // [Vz,4,Vy,Vx] | [Vz,Vy,Vx,4]
+                           void* __restrict__ tsdf_out,        // see Store
+                           __nv_bfloat16* __restrict__ color,  // see Store
+                           bool* __restrict__ visited,         // [NB], kBlockMajor
                            int K, int H, int W, int NB, int nbx, int nby, int Vx, int Vy,
                            int wy, int wx, int xstride, float limit) {
   const int slot = blockIdx.x;
   if (slot >= *count) return;
   const int b = idx[slot];
+  if (kStore == kBlockMajor && threadIdx.x == 0) visited[b] = true;
 
   __shared__ float cs[MAXK][3][NBASIS];
   __shared__ int s_ylo[MAXK], s_xlo[MAXK], s_cls[MAXK], s_hiu[MAXK], s_hiv[MAXK];
@@ -148,7 +159,13 @@ integrate_quadratic_kernel(const float* __restrict__ packed,   // [K, H, W, 6]
     float o[4];
     fuse_color(s, o);
     const size_t z = static_cast<size_t>(bz * BRICK + lz);
-    if (kChannelsLast) {
+    if (kStore == kBlockMajor) {
+      const size_t v = static_cast<size_t>(b) * B3 + lz * THREADS + tid;
+      static_cast<float*>(tsdf_out)[v] = s.wt;
+      __nv_bfloat16* cb = color + static_cast<size_t>(b) * 4 * B3 + lz * THREADS + tid;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cb[c * B3] = __float2bfloat16_rn(o[c]);
+    } else if (kStore == kChannelsLast) {
       static_cast<float*>(tsdf_out)[z * plane + col] = s.wt;
       __nv_bfloat16* cz = color + (z * plane + col) * 4;
 #pragma unroll
@@ -162,24 +179,26 @@ integrate_quadratic_kernel(const float* __restrict__ packed,   // [K, H, W, 6]
   }
 }
 
-template <bool kChannelsLast>
+template <Store kStore>
 int launch(const float* packed, const float* coeffs, const int* idx, const int* count,
-           const int* win_off, const int* cls, void* tsdf, __nv_bfloat16* color, int K,
+           const int* win_off, const int* cls, void* tsdf, __nv_bfloat16* color,
+           bool* visited, int K,
            int H, int W, int NB, int nbx, int nby, int nbz, int max_bricks, int wy, int wx,
            int xstride, float limit, cudaStream_t stream) {
   if (K > MAXK) return static_cast<int>(cudaErrorInvalidValue);
   const int Vx = nbx * BRICK, Vy = nby * BRICK, Vz = nbz * BRICK;
   const long long n = static_cast<long long>(Vx) * Vy * Vz;
-  if (kChannelsLast)
+  if (kStore == kChannelsLast)
     fill_kernel<float><<<1024, 256, 0, stream>>>(static_cast<float*>(tsdf), n, -limit);
-  else
+  else if (kStore == kZMajor)
     fill_kernel<__nv_bfloat16><<<1024, 256, 0, stream>>>(
         static_cast<__nv_bfloat16*>(tsdf), n, __float2bfloat16_rn(-limit));
-  cudaMemsetAsync(color, 0, 4 * n * sizeof(__nv_bfloat16), stream);
+  if (kStore != kBlockMajor) cudaMemsetAsync(color, 0, 4 * n * sizeof(__nv_bfloat16), stream);
+  if (kStore == kBlockMajor) cudaMemsetAsync(visited, 0, NB * sizeof(bool), stream);
   if (max_bricks > 0)
-    integrate_quadratic_kernel<kChannelsLast><<<max_bricks, THREADS, 0, stream>>>(
-        packed, coeffs, idx, count, win_off, cls, tsdf, color, K, H, W, NB, nbx, nby, Vx,
-        Vy, wy, wx, xstride, limit);
+    integrate_quadratic_kernel<kStore><<<max_bricks, THREADS, 0, stream>>>(
+        packed, coeffs, idx, count, win_off, cls, tsdf, color, visited, K, H, W, NB, nbx, nby,
+        Vx, Vy, wy, wx, xstride, limit);
   return rr_status();
 }
 
@@ -191,15 +210,21 @@ RR_API int rr_integrate_dense(const float* packed, const float* coeffs, const in
                               int W, int NB, int nbx, int nby, int nbz, int max_bricks,
                               int wy, int wx, int xstride, float limit,
                               cudaStream_t stream) {
-  return launch<false>(packed, coeffs, idx, count, win_off, cls, tsdf, color, K, H, W, NB,
-                       nbx, nby, nbz, max_bricks, wy, wx, xstride, limit, stream);
+  return launch<kZMajor>(packed, coeffs, idx, count, win_off, cls, tsdf, color, nullptr, K,
+                         H, W, NB, nbx, nby, nbz, max_bricks, wy, wx, xstride, limit, stream);
 }
 
 RR_API int rr_integrate_affine(const float* packed, const float* coeffs, const int* idx,
                                const int* count, const int* win_off, float* tsdf,
-                               __nv_bfloat16* color, int K, int H, int W, int NB, int nbx,
-                               int nby, int nbz, int max_bricks, int wy, int wx,
-                               int xstride, float limit, cudaStream_t stream) {
-  return launch<true>(packed, coeffs, idx, count, win_off, nullptr, tsdf, color, K, H, W,
-                      NB, nbx, nby, nbz, max_bricks, wy, wx, xstride, limit, stream);
+                               __nv_bfloat16* color, bool* visited, int K, int H, int W,
+                               int NB, int nbx, int nby, int nbz, int max_bricks, int wy,
+                               int wx, int xstride, float limit, cudaStream_t stream) {
+  // visited (raw mode) null: voxel order
+  if (visited)
+    return launch<kBlockMajor>(packed, coeffs, idx, count, win_off, nullptr, tsdf, color,
+                               visited, K, H, W, NB, nbx, nby, nbz, max_bricks, wy, wx,
+                               xstride, limit, stream);
+  return launch<kChannelsLast>(packed, coeffs, idx, count, win_off, nullptr, tsdf, color,
+                               nullptr, K, H, W, NB, nbx, nby, nbz, max_bricks, wy, wx,
+                               xstride, limit, stream);
 }

@@ -46,7 +46,6 @@ integrate_sparse_kernel(const float* __restrict__ packed,   // [K, H, W, 6]
   const int slot = blockIdx.x;
   if (slot >= *count) return;
   const int b = idx[slot];
-  constexpr int B3 = BRICK * BRICK * BRICK;
 
   __shared__ int s_ylo[MAXK], s_xlo[MAXK];
   __shared__ float s_corner[MAXK][6];

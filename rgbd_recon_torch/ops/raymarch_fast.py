@@ -240,15 +240,16 @@ def shade_sweep(res: SweepResult, cam: RenderCamera, bbox: Bbox, axis: int,
     fc = (g_c - c0) / (c1 - c0) * si - 0.5
 
     hit = res.hit[..., None]
+    # [Ti, Si, 12]: 9 channels and 3 of padding, the warp kernel's aligned taps
     packed = torch.cat([hit, res.hit_s[..., None] * hit, res.hit_color * hit,
-                        res.hit_grad * hit], dim=-1).contiguous()       # [Ti, Si, 9]
+                        res.hit_grad * hit, torch.zeros_like(res.hit_grad)], dim=-1)
     fr_cl = torch.clamp(fr, 0.0, ti - 1.0).contiguous()
     fc_cl = torch.clamp(fc, 0.0, si - 1.0).contiguous()
     tile = screen_tile(h, w, ti, si)
     if tile is not None:
-        warped = warp_screen(packed, fr_cl, fc_cl, tile)
+        warped = warp_screen(packed, fr_cl, fc_cl, tile, channels=9)
     else:
-        warped = _taps(packed, fr_cl, fc_cl)
+        warped = _taps(packed[..., :9], fr_cl, fc_cl)
     wmask = warped[..., 0]
     hit = wmask > 0.5
     norm = torch.clamp(wmask, min=1e-6)[..., None]

@@ -128,7 +128,7 @@ def _fit_slab(src, wd_slab, wh, ww, basis, interior):
     return cm, err, edge_err, n_cliff
 
 
-def bake_affine(rig, cfg: TsdfConfig, device: torch.device | str = "cpu") -> AffineTables:
+def bake_affine(rig, cfg: TsdfConfig, device: torch.device | str = "cuda") -> AffineTables:
     """Per-brick quadratic warp coefficients for every sensor at the volume
     res, slab by slab on ``device`` (the dense table is never built)."""
     vx, vy, vz = cfg.res

@@ -27,7 +27,7 @@ from .. import native
 from ..utils.math import full_f32
 from .tsdf import TsdfConfig
 from .tsdf_affine import AffineTables, NBASIS, _brick_basis
-from .tsdf_fast import BRICK, occupied_list, pack_frames, scatter_bricks
+from .tsdf_fast import BRICK, block_major_bricks, occupied_list, pack_frames, scatter_bricks
 
 B3 = BRICK ** 3
 SIL_PL = 0.998       # bf16-tolerant silhouette gate (tsdf_pallas.py:57)
@@ -160,11 +160,12 @@ def _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
 
 
 def integrate_quadratic_plain(packed, coeffs, idx, count, win_off, cls, res,
-                              wy, wx, xstride, limit):
+                              wy, wx, xstride, limit, raw: bool = False):
     """The fusion of kernels 1 and 6 in PyTorch, in float32: (TSDF
     [Vz, Vy, Vx], color [Vz, Vy, Vx, 4]) with the clear values where no
-    brick is occupied. Syncs with the device once to read the occupied
-    count."""
+    brick is occupied; with ``raw``, the block-major (TSDF [NB, 32, 128],
+    color [NB, 4, 32, 128], visited bool[NB]) of ``block_major_bricks``.
+    Syncs with the device once to read the occupied count."""
     _, h, w, _ = packed.shape
     basis = torch.as_tensor(_brick_basis(), device=packed.device)
 
@@ -172,6 +173,10 @@ def integrate_quadratic_plain(packed, coeffs, idx, count, win_off, cls, res,
         return _brick_chunk(packed, coeffs, win_off, cls, bricks, basis, h, w, wy, wx,
                             xstride, limit)
 
+    if raw:
+        vx, vy, vz = res
+        nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
+        return block_major_bricks(chunk, idx, count, nb, PLAIN_CHUNK)
     return scatter_bricks(chunk, idx, count, res, limit, PLAIN_CHUNK)
 
 

@@ -40,7 +40,7 @@ def _to_blocked(pos: torch.Tensor) -> torch.Tensor:
     return p.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(k, nz * ny * nx, B3, c).contiguous()
 
 
-def precompute_tables(rig, cfg, device: torch.device | str = "cpu") -> IntegrationTables:
+def precompute_tables(rig, cfg, device: torch.device | str = "cuda") -> IntegrationTables:
     """The voxel -> sensor warp of every sensor at the volume res
     (tsdf_integration.vs:31 hoisted out of the frame loop), on ``device``."""
     vx, vy, vz = cfg.res
@@ -56,7 +56,7 @@ def precompute_tables(rig, cfg, device: torch.device | str = "cpu") -> Integrati
     return IntegrationTables(pos_blocked=_to_blocked(pos))
 
 
-def tables_cached(rig, cfg, device: torch.device | str = "cpu",
+def tables_cached(rig, cfg, device: torch.device | str = "cuda",
                   cache_dir: str | None = None) -> IntegrationTables:
     """``precompute_tables`` with an optional on-disk cache under
     ``cache_dir``, keyed by the content of cv_xyz_inv and the volume res
@@ -134,6 +134,31 @@ def occupied_list(mask16: torch.Tensor, max_bricks: int):
     return idx[:max_bricks].contiguous(), valid, count
 
 
+def _chunks(idx, count, chunk: int):
+    """The first ``count`` ids of ``idx`` as i64 tensors of up to ``chunk``
+    (one host sync for the count)."""
+    n_occ = int(count.reshape(-1)[0])
+    for s in range(0, n_occ, chunk):
+        yield idx[s:min(s + chunk, n_occ)].to(torch.int64)
+
+
+def block_major_bricks(chunk_fn, idx, count, nb: int, chunk: int):
+    """``chunk_fn`` as in ``scatter_bricks``, into the block-major layout of
+    the block-major integrator's raw output: (TSDF f32[NB, 32, 128], color
+    f32[NB, 4, 32, 128], visited bool[NB]), z-major [lz, ly, lx] inside a
+    block, channel-major color. Blocks of unoccupied bricks hold 0."""
+    dev = idx.device
+    vol = torch.zeros((nb, B3), device=dev)
+    cvol = torch.zeros((nb, 4, B3), device=dev)
+    visited = torch.zeros(nb, dtype=torch.bool, device=dev)
+    for bricks in _chunks(idx, count, chunk):
+        wt, rgb, flag = chunk_fn(bricks)
+        vol[bricks] = wt
+        cvol[bricks] = torch.cat([rgb, flag[:, None]], dim=1)
+        visited[bricks] = True
+    return vol.reshape(nb, 32, 128), cvol.reshape(nb, 4, 32, 128), visited
+
+
 def scatter_bricks(chunk_fn, idx, count, res, limit: float, chunk: int):
     """Run ``chunk_fn(bricks i64[n])`` -> (wt f32[n, B3], rgb f32[n, 3, B3],
     flag f32[n, B3]) over the first ``count`` ids of ``idx``, ``chunk``
@@ -148,9 +173,7 @@ def scatter_bricks(chunk_fn, idx, count, res, limit: float, chunk: int):
     color = torch.zeros((vz * vy * vx, 4), device=dev)
     v = torch.arange(B3, device=dev)
     lz, ly, lx = v // (BRICK * BRICK), (v // BRICK) % BRICK, v % BRICK
-    n_occ = int(count.reshape(-1)[0])
-    for s in range(0, n_occ, chunk):
-        bricks = idx[s:min(s + chunk, n_occ)].to(torch.int64)
+    for bricks in _chunks(idx, count, chunk):
         wt, rgb, flag = chunk_fn(bricks)
         bz = (bricks // (nby * nbx))[:, None]
         by = ((bricks // nbx) % nby)[:, None]

@@ -6,9 +6,13 @@ the dense emit cannot tile (mirrors ``rgbd_recon_tpu/ops/tsdf_persist.py``).
 with every sensor FULL (no depth-band classes), the fixed 64-col windows
 at stride 16 and auto-sized rows, emitting f32 TSDF [Vz, Vy, Vx] and bf16
 color [Vz, Vy, Vx, 4] in voxel order with the clear values where no brick
-is occupied. The CUDA kernel is a template mode of
-``csrc/integrate_dense.cu`` with its own entry point;
-``integrate_affine_plain`` is the same function in PyTorch.
+is occupied. With ``raw=True`` it returns what the TPU kernel itself
+emits, one block per brick (``integrate_affine_pallas(raw=True)``):
+TSDF f32[NB, 32, 128], color bf16[NB, 4, 32, 128] and visited bool[NB];
+``ops/assemble.scatter_dense`` (kernel 8) places those blocks in voxel
+order. The CUDA kernel is a template mode of ``csrc/integrate_dense.cu``
+with its own entry point; ``integrate_affine_plain`` is the same function
+in PyTorch.
 """
 from __future__ import annotations
 
@@ -24,19 +28,21 @@ WX2 = 64         # x window (cols) of the block-major kernel
 XSTRIDE2 = 16    # x-block stride
 
 
-def integrate_affine_plain(packed, coeffs, idx, count, win_off, res, wy, limit):
+def integrate_affine_plain(packed, coeffs, idx, count, win_off, res, wy, limit,
+                           raw: bool = False):
     """PyTorch form of kernel 6 (see integrate_affine); takes the kernel's
     arguments."""
-    tsdf, color = integrate_quadratic_plain(packed, coeffs, idx, count, win_off, None, res,
-                                            wy, WX2, XSTRIDE2, limit)
-    return tsdf, color.to(torch.bfloat16)
+    out = integrate_quadratic_plain(packed, coeffs, idx, count, win_off, None, res,
+                                    wy, WX2, XSTRIDE2, limit, raw)
+    return (out[0], out[1].to(torch.bfloat16)) + out[2:]
 
 
 _INTEGRATE_AFFINE = native.Kernel(
-    "integrate_affine", [native.P] * 7 + [native.I] * 11 + [native.F])
+    "integrate_affine", [native.P] * 8 + [native.I] * 11 + [native.F])
 
 
-def integrate_affine_cuda(packed, coeffs, idx, count, win_off, res, wy, limit):
+def integrate_affine_cuda(packed, coeffs, idx, count, win_off, res, wy, limit,
+                          raw: bool = False):
     """Kernel 6 on the card (``csrc/integrate_dense.cu``,
     ``rr_integrate_affine``); the arguments of ``integrate_affine_plain``.
     No host sync."""
@@ -50,25 +56,33 @@ def integrate_affine_cuda(packed, coeffs, idx, count, win_off, res, wy, limit):
     native.check(idx, "idx", torch.int32, (max_bricks,), dev)
     native.check(count, "count", torch.int32, (1,), dev)
     native.check(win_off, "win_off", torch.int32, (num_k, nb, 2), dev)
-    tsdf = torch.empty((vz, vy, vx), dtype=torch.float32, device=dev)
-    color = torch.empty((vz, vy, vx, 4), dtype=torch.bfloat16, device=dev)
+    if raw:
+        tsdf = torch.empty((nb, 32, 128), dtype=torch.float32, device=dev)
+        color = torch.empty((nb, 4, 32, 128), dtype=torch.bfloat16, device=dev)
+        visited = torch.empty(nb, dtype=torch.bool, device=dev)
+    else:
+        tsdf = torch.empty((vz, vy, vx), dtype=torch.float32, device=dev)
+        color = torch.empty((vz, vy, vx, 4), dtype=torch.bfloat16, device=dev)
+        visited = None
     _INTEGRATE_AFFINE(packed.data_ptr(), coeffs.data_ptr(), idx.data_ptr(), count.data_ptr(),
-                      win_off.data_ptr(), tsdf.data_ptr(), color.data_ptr(), num_k, h, w, nb,
-                      vx // BRICK, vy // BRICK, vz // BRICK, max_bricks, wy, WX2, XSTRIDE2,
-                      limit)
-    return tsdf, color
+                      win_off.data_ptr(), tsdf.data_ptr(), color.data_ptr(),
+                      visited.data_ptr() if raw else None, num_k, h, w, nb, vx // BRICK,
+                      vy // BRICK, vz // BRICK, max_bricks, wy, WX2, XSTRIDE2, limit)
+    return (tsdf, color, visited) if raw else (tsdf, color)
 
 
 def integrate_affine(frames, affine: AffineTables, cfg: TsdfConfig, mask16: torch.Tensor,
-                     max_bricks: int, win_off: torch.Tensor, wy: int):
+                     max_bricks: int, win_off: torch.Tensor, wy: int, raw: bool = False):
     """Fused TSDF f32[Vz, Vy, Vx] + color bf16[Vz, Vy, Vx, 4] of the
     occupied 16^3 bricks of ``mask16`` (the first ``max_bricks`` in
     ascending order). ``win_off`` i32[K, NB, 2] from
-    win_offsets_affine(affine, h, w, wy, WX2, XSTRIDE2)."""
+    win_offsets_affine(affine, h, w, wy, WX2, XSTRIDE2). ``raw``: the
+    block-major (TSDF f32[NB, 32, 128], color bf16[NB, 4, 32, 128], visited
+    bool[NB]) instead; blocks that are not visited may hold anything."""
     vx, vy, vz = cfg.res
     if vx % BRICK or vy % BRICK or vz % BRICK:
         raise ValueError(f"the block-major integrator needs a 16-aligned res, got {cfg.res}")
     packed = pack_frames(frames)
     idx, _, count = occupied_list(mask16, max_bricks)
     run = integrate_affine_cuda if native.is_cuda(packed) else integrate_affine_plain
-    return run(packed, affine.coeffs, idx, count, win_off, cfg.res, wy, float(cfg.limit))
+    return run(packed, affine.coeffs, idx, count, win_off, cfg.res, wy, float(cfg.limit), raw)

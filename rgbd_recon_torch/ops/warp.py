@@ -10,7 +10,9 @@ runs once per session in torch on the pipeline's device.
 ``warp_screen`` is the port of the TPU kernel ``warp_screen_pallas``: a
 bilinear resample whose taps are confined to a per-tile window. The CUDA
 kernel is ``csrc/warp_screen.cu``; ``warp_screen_plain`` is the same
-function in PyTorch.
+function in PyTorch. The kernel reads a 9-channel source padded to 12
+channels (aligned 16-byte taps): the renderer packs its sweep image so and
+passes ``channels=9``.
 """
 from __future__ import annotations
 
@@ -80,7 +82,7 @@ class PixelWarp(NamedTuple):
 
 
 def bake_pixel_warp(rig, height: int, width: int,
-                    device: torch.device | str = "cpu") -> PixelWarp:
+                    device: torch.device | str = "cuda") -> PixelWarp:
     """Least-squares affine fit along the d axis of the raw cv grids
     (closed form), then the GL-exact separable resize of the A/B planes to
     pixel centers. Residuals are max |cv - (A + d B)| over the raw grid — an
@@ -284,7 +286,7 @@ def _affine_fit(vol: torch.Tensor, tc: np.ndarray, tm: float, tv: float):
 
 
 def bake_piecewise_warp(rig, height: int, width: int, knots: int = 32,
-                        device: torch.device | str = "cpu") -> PiecewiseWarp:
+                        device: torch.device | str = "cuda") -> PiecewiseWarp:
     """The piecewise warp: affine part as ``bake_pixel_warp``'s fit;
     residual knot planes from the depth-lerp of the raw cv slices (the knot
     value is the exact trilinear sample at that depth), stored bf16; both
@@ -399,8 +401,9 @@ def warp_windows(ti: int, si: int, fy: torch.Tensor, fx: torch.Tensor,
 
 def warp_screen_plain(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
                       tile: tuple[int, int], wh: int, y0: torch.Tensor,
-                      x0: torch.Tensor) -> torch.Tensor:
+                      x0: torch.Tensor, channels: int | None = None) -> torch.Tensor:
     """PyTorch form of kernel 2 on given window origins (see warp_screen)."""
+    img = img[..., :channels]
     ti, si, c = img.shape
     h, w = fy.shape
     th, tw = tile
@@ -431,19 +434,25 @@ def warp_screen_plain(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
 
 _WARP_SCREEN = native.Kernel(
     "warp_screen",
-    [native.P] * 6 + [native.I] * 9,
+    [native.P] * 6 + [native.I] * 10,
 )
 
 
 def warp_screen_cuda(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
                      tile: tuple[int, int], wh: int, y0: torch.Tensor,
-                     x0: torch.Tensor) -> torch.Tensor:
+                     x0: torch.Tensor, channels: int | None = None) -> torch.Tensor:
     """Kernel 2 on the card (``csrc/warp_screen.cu``); the arguments of
-    ``warp_screen_plain``."""
-    ti, si, c = img.shape
+    ``warp_screen_plain``. It takes 3 channels, or 9 of a source padded to
+    12."""
+    ti, si, cp = img.shape
+    c = cp if channels is None else channels
+    if (cp, c) not in ((3, 3), (12, 9)):
+        raise ValueError(f"warp_screen kernel: {c} channels of {cp}; takes 3 of 3 or 9 of 12")
     h, w = fy.shape
     dev = img.device
     native.check(img, "img", torch.float32, device=dev)
+    if img.data_ptr() % 16:
+        raise ValueError("img: the kernel's taps need a 16-byte aligned source")
     native.check(fy, "fy", torch.float32, (h, w), dev)
     native.check(fx, "fx", torch.float32, (h, w), dev)
     nt = (h // tile[0]) * (w // tile[1])
@@ -451,17 +460,18 @@ def warp_screen_cuda(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
     native.check(x0, "x0", torch.int32, (nt,), dev)
     out = torch.empty((h, w, c), dtype=torch.float32, device=dev)
     _WARP_SCREEN(img.data_ptr(), fy.data_ptr(), fx.data_ptr(), y0.data_ptr(),
-                 x0.data_ptr(), out.data_ptr(), ti, si, c, h, w, tile[0],
+                 x0.data_ptr(), out.data_ptr(), ti, si, cp, c, h, w, tile[0],
                  tile[1], wh, WXW)
     return out
 
 
 def warp_screen(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
-                tile: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resample of ``img`` f32[Ti, Si, C] at per-pixel fractional
-    (fy, fx) f32[H, W] (already clamped into the image) onto f32[H, W, C],
-    with each pixel's taps confined to its tile's window: the output of
+                tile: tuple[int, int], channels: int | None = None) -> torch.Tensor:
+    """Bilinear resample of the first ``channels`` (default all) of
+    ``img`` f32[Ti, Si, C] at per-pixel fractional (fy, fx) f32[H, W]
+    (already clamped into the image) onto f32[H, W, channels], with each
+    pixel's taps confined to its tile's window: the output of
     ``warp_screen_pallas`` in float32 (no bf16 matmul, no hi/lo split)."""
     wh, y0, x0 = warp_windows(img.shape[0], img.shape[1], fy, fx, tile)
     run = warp_screen_cuda if native.is_cuda(img) else warp_screen_plain
-    return run(img, fy, fx, tile, wh, y0, x0)
+    return run(img, fy, fx, tile, wh, y0, x0, channels)

@@ -102,13 +102,14 @@ STAGE_TIMERS = ("1preprocess", "2integrate", "3recon", "holefill")
 class FramePipeline:
     """Rig + static config + session bakes; ``step`` runs one frame.
 
-    ``device``: where every per-frame tensor lives. On a CUDA device the
-    four stages launch the hand-written kernels; on the CPU the kernels'
-    plain PyTorch versions run (tests). ``log``: optional callable(str)."""
+    ``device``: where every per-frame tensor lives, the card unless the
+    caller asks for another. On a CUDA device the four stages launch the
+    hand-written kernels; with ``device="cpu"`` the kernels' plain PyTorch
+    versions run (tests). ``log``: optional callable(str)."""
 
     def __init__(self, rig: RigCalibration, cfg: PipelineConfig = PipelineConfig(),
                  log: Callable[[str], None] | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.rig = rig
         self.bbox = rig.bbox
         self.device = torch.device(device)

@@ -72,7 +72,7 @@ def test_port_runs_without_jax():
             fwd_res=(16, 24, 16), inv_res=(16, 16, 16), width=96, height=80)
         d, c = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox))
         pipe = FramePipeline(rig, PipelineConfig(render_width=64, render_height=48,
-            tsdf_res=(128, 64, 64), voxel_size=0.05, brick_size=0.2, num_lods=3))
+            tsdf_res=(128, 64, 64), voxel_size=0.05, brick_size=0.2, num_lods=3), device="cpu")
         mv, pr = pipe.default_camera()
         out = pipe.step(d, c, mv, pr)
         pipe.check_capacity(out)
@@ -85,3 +85,18 @@ def test_port_runs_without_jax():
                           text=True, env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK"), proc.stdout
+
+
+def test_entry_points_default_to_the_card():
+    """The pipeline and the five public session bakes run on the card
+    unless the caller passes ``device="cpu"`` (signatures only: no GPU
+    needed)."""
+    import inspect
+
+    from rgbd_recon_torch.ops import tsdf_affine, tsdf_fast, warp
+    from rgbd_recon_torch.runtime.pipeline import FramePipeline
+
+    for fn in (FramePipeline.__init__, warp.bake_pixel_warp, warp.bake_piecewise_warp,
+               tsdf_affine.bake_affine, tsdf_fast.precompute_tables,
+               tsdf_fast.tables_cached):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -13,7 +13,8 @@ import torch
 
 from rgbd_recon_torch import native
 from rgbd_recon_torch.calibration import synthetic
-from rgbd_recon_torch.ops import bricks, preprocess as pp, tsdf_dense, tsdf_persist, tsdf_sparse
+from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp
+from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse
 from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
 from rgbd_recon_torch.ops.warp import (piecewise_eval_cuda, piecewise_eval_plain,
                                        warp_screen_cuda, warp_screen_plain, warp_windows)
@@ -55,6 +56,24 @@ def test_bilateral_accum_cuda(dev):
         torch.testing.assert_close(g, p, atol=2e-4, rtol=2e-5)
 
 
+def test_bilateral_accum_cuda_ragged_wide_range(dev):
+    """The column-per-thread tiling: tiles ragged in both directions
+    (213 = 13 * 16 + 5 rows, 301 = 9 * 32 + 13 columns),
+    depths over 0.2-9 m with wide limits, so the range windows 0.35 d / 4.5
+    span 16-700 mm. Tolerance as test_bilateral_accum_cuda."""
+    rng = np.random.default_rng(5)
+    depth = (0.2 + 8.8 * rng.random((2, 213, 301)) ** 2).astype(np.float32)
+    depth[:, 100:140, 50:90] += np.linspace(0, 3, 40, dtype=np.float32)[None, :, None]
+    depth[rng.random(depth.shape) < 0.05] = 0.0
+    limits = np.array([[0.1, 12.0], [0.5, 6.0]], np.float32)
+    d, lim = torch.from_numpy(depth).to(dev), torch.from_numpy(limits).to(dev)
+    before = native.KERNELS["bilateral_accum"].launches
+    got = pp.bilateral_accum(d, lim)
+    assert native.KERNELS["bilateral_accum"].launches == before + 1
+    for g, p in zip(got, pp.bilateral_accum_plain(d, lim)):
+        torch.testing.assert_close(g, p, atol=2e-4, rtol=2e-5)
+
+
 @pytest.mark.parametrize("brick_size", [0.1, 0.02])
 def test_mark_bricks_cuda(dev, brick_size):
     """Integer-exact. brick_size 0.02 gives 1.1 M bins: the global-atomic
@@ -72,9 +91,10 @@ def test_mark_bricks_cuda(dev, brick_size):
 
 
 def test_warp_screen_cuda(dev):
-    """atol 1e-5: the same four fp32 taps in the same order."""
+    """atol 1e-5: the same four fp32 taps in the same order. Nine channels
+    of a source padded to 12, as the renderer passes them."""
     rng = np.random.default_rng(3)
-    img = torch.from_numpy(rng.random((128, 128, 9)).astype(np.float32)).to(dev)
+    img = torch.from_numpy(rng.random((128, 128, 12)).astype(np.float32)).to(dev)
     ys, xs = np.meshgrid(np.arange(96), np.arange(128), indexing="ij")
     fy = torch.from_numpy(np.clip(ys * 1.3 * (1 + 0.1 * xs / 128) - 3, 0, 127)
                           .astype(np.float32)).to(dev)
@@ -82,10 +102,31 @@ def test_warp_screen_cuda(dev):
                           .astype(np.float32)).to(dev)
     wh, y0, x0 = warp_windows(128, 128, fy, fx, (8, 128))
     before = native.KERNELS["warp_screen"].launches
-    got = warp_screen_cuda(img, fy, fx, (8, 128), wh, y0, x0)
+    got = warp_screen_cuda(img, fy, fx, (8, 128), wh, y0, x0, 9)
     assert native.KERNELS["warp_screen"].launches == before + 1
-    torch.testing.assert_close(got, warp_screen_plain(img, fy, fx, (8, 128), wh, y0, x0),
+    torch.testing.assert_close(got, warp_screen_plain(img, fy, fx, (8, 128), wh, y0, x0, 9),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cp,c", [(3, 3), (12, 9)])
+def test_warp_screen_cuda_layouts(dev, cp, c):
+    """The two source layouts of the kernel: 3 channels (registration) and
+    9 channels padded to 12 (the renderer), on a registration-like tile
+    (8, 64) and a screen-like tile (48, 128). Tolerance as
+    test_warp_screen_cuda."""
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.random((200, 256, cp)).astype(np.float32)).to(dev)
+    for (h, w), tile in (((96, 256), (8, 64)), ((144, 256), (48, 128))):
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        fy = torch.from_numpy(np.clip(ys * 1.3 + 4 * np.sin(xs / 17), 0, 199)
+                              .astype(np.float32)).to(dev)
+        fx = torch.from_numpy(np.clip(xs * 0.97 + 3 * np.cos(ys / 11), 0, 255)
+                              .astype(np.float32)).to(dev)
+        wh, y0, x0 = warp_windows(200, 256, fy, fx, tile)
+        got = warp_screen_cuda(img, fy, fx, tile, wh, y0, x0, c)
+        assert got.shape == (h, w, c)
+        torch.testing.assert_close(got, warp_screen_plain(img, fy, fx, tile, wh, y0, x0, c),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_integrate_dense_cuda(dev):
@@ -150,6 +191,41 @@ def test_integrate_affine_cuda(dev):
     vol, cvol = tsdf_persist.integrate_affine_cuda(*args)
     assert vol.dtype == torch.float32 and cvol.shape == (96, 96, 96, 4)
     _assert_integrator_bound(vol, cvol, *tsdf_persist.integrate_affine_plain(*args))
+
+
+def test_scatter_dense_cuda(dev):
+    """Kernel 8 against its plain version, exactly (a copy), with garbage
+    indices past the count and a non-cubic volume."""
+    rng = np.random.default_rng(6)
+    res = (80, 48, 64)
+    nb = 5 * 3 * 4
+    vbm = torch.from_numpy(rng.standard_normal((nb, 32, 128)).astype(np.float32)).to(dev)
+    cbm = torch.from_numpy(rng.standard_normal((nb, 4, 32, 128)).astype(np.float32)
+                           ).to(dev).to(torch.bfloat16)
+    idx = np.full(40, nb + 77, np.int32)
+    idx[:31] = np.sort(rng.permutation(nb)[:31])
+    idx[35:] = -9
+    idx, count = torch.from_numpy(idx).to(dev), torch.tensor([31], dtype=torch.int32).to(dev)
+    before = native.KERNELS["scatter_dense"].launches
+    v, c = assemble.scatter_dense(vbm, cbm, idx, count, res, 0.01)
+    assert native.KERNELS["scatter_dense"].launches == before + 1
+    pv, pc = assemble.scatter_dense_plain(vbm, cbm, idx, count, res, 0.01)
+    assert torch.equal(v, pv) and torch.equal(c, pc)
+
+
+def test_integrate_affine_raw_scatter_cuda(dev):
+    """Kernel 6 in raw mode, assembled by kernel 8, is kernel 6's
+    voxel-order output bit for bit (color after the channel permute)."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev, n=96)
+    packed, idx, count = _integrator_args(pipe, depth, color, mv, proj)
+    args = (packed, pipe.affine.coeffs, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
+            pipe._wy, pipe.tsdf_cfg.limit)
+    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*args, raw=True)
+    assert int(visited.sum()) == int(count) > 0
+    v, c = assemble.scatter_dense_cuda(vbm, cbm, idx, count, pipe.tsdf_cfg.res,
+                                       pipe.tsdf_cfg.limit)
+    want_v, want_c = tsdf_persist.integrate_affine_cuda(*args)
+    assert torch.equal(v, want_v) and torch.equal(c.permute(1, 2, 3, 0), want_c)
 
 
 def test_integrate_sparse_cuda(dev):

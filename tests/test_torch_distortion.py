@@ -105,7 +105,7 @@ def test_piecewise_bake_matches_jax(ref):
     """A and B atol 1e-6, the residual bounds within 1e-6, R equal as bf16
     except < 1e-3 of the entries, which differ by one bf16 ulp (the fit is
     summed in the numpy original's order; measured: all equal)."""
-    pw = bake_piecewise_warp(from_jax(ref.rig), H, W, knots=48)
+    pw = bake_piecewise_warp(from_jax(ref.rig), H, W, knots=48, device="cpu")
     assert isinstance(pw, PiecewiseWarp) and pw.knots == 48
     for f in ("xyz_a", "xyz_b", "uv_a", "uv_b"):
         np.testing.assert_allclose(getattr(pw, f).numpy(), np.asarray(getattr(ref.pw, f)),
@@ -156,7 +156,7 @@ def _pipeline(rig, **over):
     cfg = PipelineConfig(render_width=RW, render_height=RH, tsdf_res=(48, 48, 48),
                          voxel_size=float(np.max(Bbox.default().size) / 48),
                          brick_size=0.2, num_lods=5, **over)
-    return FramePipeline(rig, cfg, log=logs.append), logs
+    return FramePipeline(rig, cfg, log=logs.append, device="cpu"), logs
 
 
 def test_warp_gate_tiers(ref, small_rig):
@@ -252,7 +252,7 @@ def test_distorted_slice_matches_jax(ref):
     logs = []
     pipe = FramePipeline(from_jax(rig), PipelineConfig(
         render_width=RW, render_height=RH, tsdf_res=RES, voxel_size=voxel,
-        sweep_res=SWEEP), log=logs.append)
+        sweep_res=SWEEP), log=logs.append, device="cpu")
     got = pipe.step(ref.depth, ref.color, mv, proj)
     assert isinstance(pipe._warp, PiecewiseWarp) and pipe._dense_emit, logs
     assert pipe.check_capacity(got) == int(np.asarray(m2).sum())

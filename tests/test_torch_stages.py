@@ -108,7 +108,7 @@ def test_pixel_warp_bake_matches_jax(ref):
     """The port's torch bake vs the JAX numpy bake: atol 1e-5 (meters for
     xyz, normalized texcoords for uv) — float32 sums in another order over
     the 48 depth slices."""
-    warp = bake_pixel_warp(from_jax(ref.rig), 212, 256)
+    warp = bake_pixel_warp(from_jax(ref.rig), 212, 256, device="cpu")
     for f in ("xyz_a", "xyz_b", "uv_a", "uv_b"):
         np.testing.assert_allclose(getattr(warp, f).numpy(),
                                    np.asarray(getattr(ref.warp, f)),
@@ -128,7 +128,7 @@ def test_session_bakes_match_jax(ref):
     against the port's float64 solve; see ROADMAP queue 3). Window sizes exact. Window origins, cull cells and
     cull depth bands (within 1e-4) are functions of the fit's footprint
     hull, so they follow the fit: each may differ on under 2% of entries."""
-    aff = tsdf_affine.bake_affine(from_jax(ref.rig), TsdfConfig((N, N, N), LIMIT))
+    aff = tsdf_affine.bake_affine(from_jax(ref.rig), TsdfConfig((N, N, N), LIMIT), "cpu")
     c, jc = aff.coeffs.numpy(), np.asarray(ref.aff.coeffs)
     valid = jc[..., 0, 0] >= 0
     np.testing.assert_array_equal(c[..., 0, 0] >= 0, valid)
@@ -266,7 +266,7 @@ def test_slice_matches_jax(ref):
     """The whole slice: the port's FramePipeline.step, with its own session
     bakes, vs the JAX stage chain, hole filling included, at the
     render-parity bounds of tests/test_golden.py:65-69."""
-    pipe = FramePipeline(from_jax(ref.rig), ref.pipe_cfg)
+    pipe = FramePipeline(from_jax(ref.rig), ref.pipe_cfg, device="cpu")
     out = pipe.step(ref.depth, ref.color, ref.mv, ref.proj)
     assert pipe.check_capacity(out) == int(np.asarray(ref.m2).sum())
     assert out.tsdf.shape == (N, N, N) and out.color.shape == (RH, RW, 4)
@@ -292,4 +292,4 @@ def test_pipeline_rejects_what_it_does_not_implement(small_rig, change):
     rig = RigCalibration(*(np.asarray(getattr(small_rig["rig"], f))
                            for f in RigCalibration._fields))
     with pytest.raises(NotImplementedError):
-        FramePipeline(rig, PipelineConfig(**change))
+        FramePipeline(rig, PipelineConfig(**change), device="cpu")

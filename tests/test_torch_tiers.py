@@ -100,11 +100,12 @@ def test_tables_and_windows_match_jax(ref, tmp_path):
     weights per axis, summed in another order), the cached bake identical
     to the fresh one, and both window placements exact."""
     cfg = TsdfConfig((N_TABLE,) * 3, LIMIT)
-    tables = tsdf_fast.precompute_tables(from_jax(ref.rig), cfg)
+    tables = tsdf_fast.precompute_tables(from_jax(ref.rig), cfg, "cpu")
     want = np.asarray(ref.tables.pos_blocked)
     np.testing.assert_allclose(tables.pos_blocked.numpy(), want, atol=1e-6, rtol=0)
     for _ in range(2):      # bake + store, then load
-        cached = tsdf_fast.tables_cached(from_jax(ref.rig), cfg, cache_dir=str(tmp_path))
+        cached = tsdf_fast.tables_cached(from_jax(ref.rig), cfg, "cpu",
+                                          cache_dir=str(tmp_path))
         assert torch.equal(cached.pos_blocked, tables.pos_blocked)
     jt = from_jax(ref.tables)
     np.testing.assert_array_equal(tsdf_fast.win_offsets(jt, 212, 256, 64).numpy(),
@@ -167,7 +168,7 @@ def test_affine_bake_solves_in_float64(ref, monkeypatch):
 
     monkeypatch.setattr(tsdf_affine, "_solve", record)
     n = 128
-    aff = tsdf_affine.bake_affine(from_jax(ref.rig), TsdfConfig((n, n, n), LIMIT))
+    aff = tsdf_affine.bake_affine(from_jax(ref.rig), TsdfConfig((n, n, n), LIMIT), "cpu")
     c = aff.coeffs.numpy()
     valid = c[..., 0, 0] >= 0
     a = np.concatenate([s[0] for s in systems], axis=1)
@@ -196,7 +197,7 @@ def _jax_render(ref, vol, cvol, mask16, n):
 
 def _slice_parity(ref, cfg, want_out, want_color):
     logs = []
-    pipe = FramePipeline(from_jax(ref.rig), cfg, log=logs.append)
+    pipe = FramePipeline(from_jax(ref.rig), cfg, log=logs.append, device="cpu")
     out = pipe.step(ref.depth, ref.color, ref.mv, ref.proj)
     assert out.tsdf.dtype == torch.float32
     got = types.SimpleNamespace(color=_np(out.color), depth=_np(out.depth),
