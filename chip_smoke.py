@@ -76,7 +76,20 @@ FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
 # FMA 1 - dist * inv, gs * gr, wr += gr, wa += ws, the FMA bf += ws * s (the
 # clamp at 0 is a max, not counted)
 TAP_OPS = 1 + 2 + 1 + 1 + 1 + 2
-FUSE_OPS = 130             # per voxel and sensor: quadratic warp 60, taps 30, fusion 40
+# fp32 operations of one (voxel, sensor) of the quadratic integrator, an FMA
+# counted as two and a __fdividef as two (reciprocal, product); clamps,
+# floors and compares not counted:
+# - warp: 3 channels x 5 FMA of the slab-folded (y, x) quadratic = 30;
+# - sampling: cu - iu, cv - iv, pu + 0.5, pv + 0.5 = 4;
+# - LINEAR taps: 1 - sil at 4 taps, 1 - gu, 1 - gv, then per channel (5)
+#   two row lerps (product + FMA: 3 each) and one column lerp (3) = 51;
+# - fusion: sdist, new_tw, wt*tw + qual*sdist (3), its quotient (2),
+#   dist, dist + 0.01, w_c (2), tc += r w_c (3 FMA: 6), tcw +=, w2 (2),
+#   td += r w2 (6), tdw += = 27.
+WARP_OPS = 3 * 5 * 2
+FUSE_OPS = WARP_OPS + 4 + (4 + 2 + 5 * 9) + (1 + 1 + 3 + 2 + 1 + 1 + 2 + 6 + 1 + 2 + 6 + 1)
+# per voxel once: fuse_color's reciprocal (2) and three products
+COLOR_OPS = 2 + 3
 
 
 def _fail(msg: str) -> int:
@@ -224,7 +237,8 @@ def main() -> int:
     from rgbd_recon_torch import native
     from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp, raymarch_fast as rmf
     from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse, warp as warp_ops
-    from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
+    from rgbd_recon_torch.ops.tsdf_fast import (occupied_bricks, occupied_list, pack_frames,
+                                                pack_planes)
     from rgbd_recon_torch.runtime import pipeline as pl
 
     t_start = time.perf_counter()
@@ -337,13 +351,17 @@ def main() -> int:
                "<1e-4 of voxels off >1e-4, <1e-3 color off >1e-2, occupancy within 0.2%",
                ok, run_kernel, run_plain, reps, nbytes, ops)
 
-    def integrator_work(packed, n_occ, res, out_bytes, in_bytes_per_brick, ops_per_voxel):
+    def integrator_work(packed, n_occ, index_bytes, res, out_bytes, in_bytes_per_brick,
+                        pair_ops):
         """Bytes and fp32 operations of one integration: the packed frames,
-        the occupied bricks' per-sensor inputs, the dense outputs."""
+        the brick index (list or per-brick slot map), the fused bricks'
+        per-sensor inputs, the dense outputs; ``pair_ops`` per (voxel,
+        sensor), COLOR_OPS per voxel."""
         k = packed.shape[0]
         vox = res[0] * res[1] * res[2]
-        nbytes = packed.numel() * 4 + n_occ * (4 + k * in_bytes_per_brick) + vox * out_bytes
-        return nbytes, n_occ * 4096 * k * ops_per_voxel
+        nbytes = (packed.numel() * 4 + index_bytes + n_occ * k * in_bytes_per_brick
+                  + vox * out_bytes)
+        return nbytes, n_occ * 4096 * (k * pair_ops + COLOR_OPS)
 
     # -- 3. pinhole 256^3 ---------------------------------------------------
     t0 = time.perf_counter()
@@ -424,22 +442,24 @@ def main() -> int:
 
     # integrate_dense: the warm-up frame's occupied bricks at 256^3
     (fr, aff, tcfg, m16, maxb, woff, wy, wx, xs, cls), _ = recs["integrate_dense"].calls[0]
-    idx, _, count = occupied_list(m16, maxb)
-    iargs = (pack_frames(fr), aff.coeffs, idx, count, woff, cls, tcfg.res, wy, wx, xs,
-             float(tcfg.limit))
-    print(f"  integrate_dense: {int(count)} occupied bricks")
+    idx, count, slots = occupied_bricks(m16, maxb)
+    packed = pack_frames(fr)
+    iargs = (packed, aff.coeffs, idx, count, woff, cls, tcfg.res, wy, wx, xs, float(tcfg.limit))
+    kargs = (pack_planes(fr), aff.coeffs, idx, count, slots) + iargs[4:]
+    print(f"  integrate_dense: {int(count)} fused bricks of {slots.numel()}")
     check_integrator("integrate_dense", "rgbd_recon_torch/csrc/integrate_dense.cu",
                      "rgbd_recon_tpu/ops/tsdf_dense.py:452",
-                     lambda: tsdf_dense.integrate_dense_cuda(*iargs),
+                     lambda: tsdf_dense.integrate_dense_cuda(*kargs),
                      lambda: tsdf_dense.integrate_dense_plain(*iargs), tcfg.limit, 5,
-                     *integrator_work(iargs[0], int(count), tcfg.res, 10, 4 * 40 + 8 + 4,
-                                      FUSE_OPS))
+                     # per (brick, sensor): 3 x 10 coefficients, window, class
+                     *integrator_work(packed, int(count), (slots.numel() + int(count) + 1) * 4,
+                                      tcfg.res, 10, 3 * 40 + 8 + 4, FUSE_OPS))
 
     drive("pinhole", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_dense",),
           PINHOLE_FRAMES, cfg.tsdf_res)
     if "--profile" in sys.argv[1:]:
         _profile_frame(pipe, frames[1], mv, proj, card)
-    del pipe, recs, iargs, fr, aff, m16, woff, cls
+    del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls
 
     # -- 4. distorted rig, 256^3 (the piecewise warp, kernel 5) --------------
     t0 = time.perf_counter()
@@ -469,6 +489,10 @@ def main() -> int:
 
     # piecewise_eval at its main-path calls: M=1 (xyz) and M=5 (normals)
     calls = {c[0][0].shape[0]: c[0] for c in recs["piecewise_eval"].calls}
+    by_m = {}
+    for c in recs["piecewise_eval"].calls:
+        by_m[c[0][0].shape[0]] = by_m.get(c[0][0].shape[0], 0) + 1
+    print(f"  piecewise_eval calls in the warm-up frame by M: {dict(sorted(by_m.items()))}")
     for m in (1, 5):
         D, a, b, r, d_min, d_max = calls[m]
         dc, cc = warp_ops.knot_coords(D, d_min, d_max, r.shape[2])
@@ -496,20 +520,22 @@ def main() -> int:
     if pipe._dense_emit or pipe.affine is None:
         raise RuntimeError("the 240^3 volume did not take the block-major integrator")
     (fr, aff, tcfg, m16, maxb, woff, wy), _ = recs["integrate_affine"].calls[0]
-    idx, _, count = occupied_list(m16, maxb)
-    aargs = (pack_frames(fr), aff.coeffs, idx, count, woff, tcfg.res, wy, float(tcfg.limit))
-    print(f"  integrate_affine: {int(count)} occupied bricks at {tcfg.res}")
+    idx, count, slots = occupied_bricks(m16, maxb)
+    packed = pack_frames(fr)
+    aargs = (packed, aff.coeffs, idx, count, woff, tcfg.res, wy, float(tcfg.limit))
+    kargs = (pack_planes(fr), aff.coeffs, idx, count, slots) + aargs[4:]
+    print(f"  integrate_affine: {int(count)} fused bricks of {slots.numel()} at {tcfg.res}")
     check_integrator("integrate_affine", "rgbd_recon_torch/csrc/integrate_dense.cu",
                      "rgbd_recon_tpu/ops/tsdf_persist.py:787",
-                     lambda: tsdf_persist.integrate_affine_cuda(*aargs),
+                     lambda: tsdf_persist.integrate_affine_cuda(*kargs),
                      lambda: tsdf_persist.integrate_affine_plain(*aargs), tcfg.limit, 5,
-                     *integrator_work(aargs[0], int(count), tcfg.res, 12, 4 * 40 + 8,
-                                      FUSE_OPS))
+                     *integrator_work(packed, int(count), (slots.numel() + int(count) + 1) * 4,
+                                      tcfg.res, 12, 3 * 40 + 8, FUSE_OPS))
 
     # kernel 6 in raw mode (block-major, no clear) against its plain
     # version on the visited blocks; its work: the inputs as above, the
     # occupied blocks and the visited flags written
-    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*aargs, raw=True)
+    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*kargs, raw=True)
     pvbm, pcbm, pvisited = tsdf_persist.integrate_affine_plain(*aargs, raw=True)
     vis = visited.nonzero().squeeze(1)
     v, pv = vbm[vis], pvbm[vis]
@@ -523,16 +549,18 @@ def main() -> int:
            "visited as the plain version's; on them <1e-4 of voxels off >1e-4, <1e-3 color "
            "off >1e-2", torch.equal(visited, pvisited) and vis.numel() == n_occ and off < 1e-4
            and cd < 1e-3,
-           lambda: tsdf_persist.integrate_affine_cuda(*aargs, raw=True),
+           lambda: tsdf_persist.integrate_affine_cuda(*kargs, raw=True),
            lambda: tsdf_persist.integrate_affine_plain(*aargs, raw=True), 5,
-           aargs[0].numel() * 4 + n_occ * (4 + aargs[0].shape[0] * (4 * 40 + 8))
-           + n_occ * 4096 * 12 + visited.numel(), n_occ * 4096 * aargs[0].shape[0] * FUSE_OPS)
+           packed.numel() * 4 + (slots.numel() + n_occ + 1) * 4
+           + n_occ * packed.shape[0] * (3 * 40 + 8)
+           + n_occ * 4096 * 12 + visited.numel(),
+           n_occ * 4096 * (packed.shape[0] * FUSE_OPS + COLOR_OPS))
     del pvbm, pcbm, pvisited, v, pv
 
     # kernel 6 in raw mode, then kernel 8: bit for bit the voxel-order
     # output of kernel 6; kernel 8 exactly its plain version
     dense_v, dense_c = assemble.scatter_dense_cuda(vbm, cbm, idx, count, tcfg.res, tcfg.limit)
-    want_v, want_c = tsdf_persist.integrate_affine_cuda(*aargs)
+    want_v, want_c = tsdf_persist.integrate_affine_cuda(*kargs)
     same = (torch.equal(dense_v, want_v) and torch.equal(dense_c.permute(1, 2, 3, 0), want_c)
             and int(visited.sum()) == int(count))
     print(f"  integrate_affine raw + scatter_dense bit for bit the voxel-order output: "
@@ -590,7 +618,7 @@ def main() -> int:
     launches["integrate_affine[raw]"] = counts["integrate_affine"]
     if not (bool(torch.isfinite(dense_v).all()) and int((dense_v > -tcfg.limit).sum()) > 0):
         raise RuntimeError("the assembled volume is not finite or holds no surface")
-    del pipe, recs, aargs, fr, aff, m16, woff, vbm, cbm, dense_v, dense_c
+    del pipe, recs, aargs, kargs, packed, slots, fr, aff, m16, woff, vbm, cbm, dense_v, dense_c
 
     # -- 6. table integrator: pinhole rig at 256^3, use_affine=False (kernel 7)
     tcfg_p = _bench_config(bbox, n, use_affine=False)
@@ -612,8 +640,8 @@ def main() -> int:
                      "rgbd_recon_tpu/ops/tsdf_pallas.py:437",
                      lambda: tsdf_sparse.integrate_sparse_cuda(*sargs),
                      lambda: tsdf_sparse.integrate_sparse_plain(*sargs), tcfg.limit, 5,
-                     *integrator_work(sargs[0], int(count), tcfg.res, 20, 4096 * 12 + 8,
-                                      FUSE_OPS - 60))
+                     *integrator_work(sargs[0], int(count), 4 + int(count) * 4, tcfg.res, 20,
+                                      4096 * 12 + 8, FUSE_OPS - WARP_OPS))
     drive("table", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_sparse",),
           NUM_FRAMES, tcfg_p.tsdf_res)
     del pipe, recs, sargs, fr, tables, m16, woff

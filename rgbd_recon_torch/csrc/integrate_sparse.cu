@@ -18,8 +18,9 @@
 //
 // Bound on the card: memory. Per voxel and sensor 12 bytes of table (the
 // largest input stream: 805 MB for all bricks at 256^3 x 4 sensors, of which
-// an occupied subset is read) plus 21 scattered, mostly L2-resident frame
-// reads; the clear of the outputs (256^3 x 20 bytes = 336 MB) is the
+// an occupied subset is read) plus 13 scattered, mostly L2-resident frame
+// reads (the NEAREST depth and three 8-byte loads for each LINEAR tap,
+// csrc/fuse.cuh); the clear of the outputs (256^3 x 20 bytes = 336 MB) is the
 // largest write. Design: one 256-thread block per occupied brick (blocks
 // past the occupied count exit at once), one thread per (y, x) column of the
 // brick looping over its 16 z voxels; the window origins and corner values

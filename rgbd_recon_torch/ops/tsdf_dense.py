@@ -7,7 +7,10 @@ classes from the depth-band cull): TSDF bf16[Vz, Vy, Vx] cleared to -limit
 and color bf16[Vz, 4, Vy, Vx] (rgb + has-quality flag) cleared to 0. The
 CUDA kernel (``csrc/integrate_dense.cu``) reads ``AffineTables.coeffs``
 directly — the TPU's session-baked ``cmats_full`` layout is not ported —
-and ``integrate_dense_plain`` is the same function in PyTorch.
+and ``integrate_dense_plain`` is the same function in PyTorch. The kernel
+fuses the bricks of the occupied list and clears the ones the per-brick
+slot map marks idle (``tsdf_fast.occupied_bricks``), in one launch; it
+reads the frame in the two planes of ``tsdf_fast.pack_planes``.
 
 Per voxel and sensor (``tsdf_persist._fuse_update`` / ``fuse_chunk_v3``):
 the quadratic warp gives window-relative pixel coordinates; a voxel outside
@@ -27,7 +30,8 @@ from .. import native
 from ..utils.math import full_f32
 from .tsdf import TsdfConfig
 from .tsdf_affine import AffineTables, NBASIS, _brick_basis
-from .tsdf_fast import BRICK, block_major_bricks, occupied_list, pack_frames, scatter_bricks
+from .tsdf_fast import (BRICK, block_major_bricks, occupied_bricks, pack_frames, pack_planes,
+                        scatter_bricks)
 
 B3 = BRICK ** 3
 SIL_PL = 0.998       # bf16-tolerant silhouette gate (tsdf_pallas.py:57)
@@ -191,34 +195,45 @@ def integrate_dense_plain(packed, coeffs, idx, count, win_off, cls, res,
 
 _INTEGRATE_DENSE = native.Kernel(
     "integrate_dense",
-    [native.P] * 8 + [native.I] * 11 + [native.F],
+    [native.P] * 10 + [native.I] * 10 + [native.F],
 )
 
 
-def integrate_dense_cuda(packed, coeffs, idx, count, win_off, cls, res,
-                         wy, wx, xstride, limit):
-    """Kernel 1 on the card (``csrc/integrate_dense.cu``); the arguments of
-    ``integrate_dense_plain``. No host sync: the kernel reads the occupied
-    count from device memory."""
+def quadratic_args(planes, coeffs, idx, count, slots, win_off, res):
+    """Validate the inputs the kernels of ``csrc/integrate_dense.cu`` share;
+    returns their pointers and (K, H, W, NB, nbx, nby, max_bricks)."""
     vx, vy, vz = res
-    num_k, h, w, _ = packed.shape
+    plane_a, plane_b = planes
+    num_k, h, w, _ = plane_a.shape
     nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
-    max_bricks = idx.shape[0]
-    dev = packed.device
-    native.check(packed, "packed", torch.float32, (num_k, h, w, 6), dev)
+    dev = plane_a.device
+    native.check(plane_a, "plane_a", torch.float32, (num_k, h, w, 4), dev)
+    native.check(plane_b, "plane_b", torch.float32, (num_k, h, w, 2), dev)
     native.check(coeffs, "coeffs", torch.float32, (num_k, nb, 4, NBASIS), dev)
-    native.check(idx, "idx", torch.int32, (max_bricks,), dev)
+    native.check(idx, "idx", torch.int32, None, dev)
     native.check(count, "count", torch.int32, (1,), dev)
+    native.check(slots, "slots", torch.int32, (nb,), dev)
     native.check(win_off, "win_off", torch.int32, (num_k, nb, 2), dev)
+    ptrs = [t.data_ptr() for t in (plane_a, plane_b, coeffs, idx, count, slots, win_off)]
+    return ptrs, (num_k, h, w, nb, vx // BRICK, vy // BRICK, idx.shape[0])
+
+
+def integrate_dense_cuda(planes, coeffs, idx, count, slots, win_off, cls, res, wy, wx,
+                         xstride, limit):
+    """Kernel 1 on the card (``csrc/integrate_dense.cu``): the arguments of
+    ``integrate_dense_plain`` with the frame as ``tsdf_fast.pack_planes``
+    gives it and the per-brick slot map ``slots``
+    (``tsdf_fast.occupied_bricks``). One launch writes every output byte once;
+    no host sync: the kernel reads the count from device memory."""
+    vx, vy, vz = res
+    ptrs, dims = quadratic_args(planes, coeffs, idx, count, slots, win_off, res)
+    dev = coeffs.device
     if cls is not None:
-        native.check(cls, "cls", torch.int32, (num_k, nb), dev)
+        native.check(cls, "cls", torch.int32, (dims[0], dims[3]), dev)
     tsdf = torch.empty((vz, vy, vx), dtype=torch.bfloat16, device=dev)
     color = torch.empty((vz, 4, vy, vx), dtype=torch.bfloat16, device=dev)
-    _INTEGRATE_DENSE(
-        packed.data_ptr(), coeffs.data_ptr(), idx.data_ptr(), count.data_ptr(),
-        win_off.data_ptr(), cls.data_ptr() if cls is not None else None,
-        tsdf.data_ptr(), color.data_ptr(), num_k, h, w, nb, vx // BRICK,
-        vy // BRICK, vz // BRICK, max_bricks, wy, wx, xstride, limit)
+    _INTEGRATE_DENSE(*ptrs, cls.data_ptr() if cls is not None else None, tsdf.data_ptr(),
+                     color.data_ptr(), *dims, wy, wx, xstride, limit)
     return tsdf, color
 
 
@@ -233,8 +248,9 @@ def integrate_dense(frames, affine: AffineTables, cfg: TsdfConfig,
     vx, vy, vz = cfg.res
     if vx % 128 or vy % BRICK or vz % BRICK:
         raise ValueError(f"dense emit needs Vx % 128 == 0 and 16-aligned res, got {cfg.res}")
-    packed = pack_frames(frames)
-    idx, _, count = occupied_list(mask16, max_bricks)
-    run = integrate_dense_cuda if native.is_cuda(packed) else integrate_dense_plain
-    return run(packed, affine.coeffs, idx, count, win_off, cls, cfg.res, wy, wx,
-               xstride, float(cfg.limit))
+    idx, count, slots = occupied_bricks(mask16, max_bricks)
+    if native.is_cuda(frames.depth):
+        return integrate_dense_cuda(pack_planes(frames), affine.coeffs, idx, count, slots,
+                                    win_off, cls, cfg.res, wy, wx, xstride, float(cfg.limit))
+    return integrate_dense_plain(pack_frames(frames), affine.coeffs, idx, count, win_off, cls,
+                                 cfg.res, wy, wx, xstride, float(cfg.limit))

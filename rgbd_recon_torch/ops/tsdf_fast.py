@@ -115,6 +115,32 @@ def pack_frames(frames) -> torch.Tensor:
     ).contiguous()
 
 
+def pack_planes(frames) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed frame in the two planes the dense integration kernels
+    read: (f32[K, H, W, 4] depth | quality | silhouette | r, f32[K, H, W, 2]
+    g | b). A tap is one 16-byte and one 8-byte load over dense rows."""
+    rgb = frames.color_registered
+    a = torch.cat([frames.depth[..., :1], frames.quality[..., None],
+                   frames.silhouette[..., None], rgb[..., :1]], dim=-1).contiguous()
+    return a, rgb[..., 1:3].contiguous()
+
+
+def occupied_bricks(mask16: torch.Tensor, max_bricks: int):
+    """``occupied_list``'s (idx, count) and, from the same cumsum, the
+    per-brick slot map slots i32[NB]: brick b's position in ``idx``, -1 for
+    a brick that is not fused (unoccupied, or occupied past the capacity).
+    Device-resident, no host sync; the dense integration kernels fuse the
+    bricks of ``idx`` and clear the ones ``slots`` marks -1."""
+    flat = mask16.reshape(-1)
+    c = torch.cumsum(flat.to(torch.int32), dim=0)
+    slots = torch.where(flat & (c <= max_bricks), c - 1, -1).to(torch.int32)
+    idx = torch.zeros(max_bricks + 1, dtype=torch.int32, device=mask16.device)
+    idx.scatter_(0, torch.where(slots >= 0, slots, max_bricks).to(torch.int64),
+                 torch.arange(flat.shape[0], dtype=torch.int32, device=mask16.device))
+    count = torch.clamp(c[-1:], max=max_bricks).to(torch.int32)
+    return idx[:max_bricks].contiguous(), count, slots
+
+
 def occupied_list(mask16: torch.Tensor, max_bricks: int):
     """Fixed-capacity list of occupied brick ids in ascending order,
     device-resident (replaces the reference's GPU->CPU readback,
@@ -122,16 +148,8 @@ def occupied_list(mask16: torch.Tensor, max_bricks: int):
     bool[max_bricks], count i32[1] = min(#occupied, max_bricks)); bricks
     past the capacity are dropped (``FrameOutput.occupied_bricks`` makes
     that detectable)."""
-    flat = mask16.reshape(-1)
-    c = torch.cumsum(flat.to(torch.int32), dim=0)
-    slot = torch.where(flat, c - 1, max_bricks).clamp(max=max_bricks).to(torch.int64)
-    idx = torch.zeros(max_bricks + 1, dtype=torch.int32, device=mask16.device)
-    idx.scatter_(0, slot, torch.arange(flat.shape[0], dtype=torch.int32,
-                                       device=mask16.device))
-    total = c[-1:]
-    valid = torch.arange(max_bricks, device=mask16.device) < total
-    count = torch.clamp(total, max=max_bricks).to(torch.int32)
-    return idx[:max_bricks].contiguous(), valid, count
+    idx, count, _ = occupied_bricks(mask16, max_bricks)
+    return idx, torch.arange(max_bricks, device=mask16.device) < count, count
 
 
 def _chunks(idx, count, chunk: int):

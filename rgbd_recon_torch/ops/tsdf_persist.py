@@ -20,9 +20,9 @@ import torch
 
 from .. import native
 from .tsdf import TsdfConfig
-from .tsdf_affine import NBASIS, AffineTables
-from .tsdf_dense import integrate_quadratic_plain
-from .tsdf_fast import BRICK, occupied_list, pack_frames
+from .tsdf_affine import AffineTables
+from .tsdf_dense import integrate_quadratic_plain, quadratic_args
+from .tsdf_fast import BRICK, occupied_bricks, pack_frames, pack_planes
 
 WX2 = 64         # x window (cols) of the block-major kernel
 XSTRIDE2 = 16    # x-block stride
@@ -38,24 +38,19 @@ def integrate_affine_plain(packed, coeffs, idx, count, win_off, res, wy, limit,
 
 
 _INTEGRATE_AFFINE = native.Kernel(
-    "integrate_affine", [native.P] * 8 + [native.I] * 11 + [native.F])
+    "integrate_affine", [native.P] * 10 + [native.I] * 10 + [native.F])
 
 
-def integrate_affine_cuda(packed, coeffs, idx, count, win_off, res, wy, limit,
+def integrate_affine_cuda(planes, coeffs, idx, count, slots, win_off, res, wy, limit,
                           raw: bool = False):
     """Kernel 6 on the card (``csrc/integrate_dense.cu``,
-    ``rr_integrate_affine``); the arguments of ``integrate_affine_plain``.
-    No host sync."""
+    ``rr_integrate_affine``): the arguments of ``integrate_affine_plain``
+    with the frame as ``tsdf_fast.pack_planes`` gives it and the per-brick
+    slot map ``slots`` (``tsdf_fast.occupied_bricks``). No host sync."""
     vx, vy, vz = res
-    num_k, h, w, _ = packed.shape
-    nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
-    max_bricks = idx.shape[0]
-    dev = packed.device
-    native.check(packed, "packed", torch.float32, (num_k, h, w, 6), dev)
-    native.check(coeffs, "coeffs", torch.float32, (num_k, nb, 4, NBASIS), dev)
-    native.check(idx, "idx", torch.int32, (max_bricks,), dev)
-    native.check(count, "count", torch.int32, (1,), dev)
-    native.check(win_off, "win_off", torch.int32, (num_k, nb, 2), dev)
+    ptrs, dims = quadratic_args(planes, coeffs, idx, count, slots, win_off, res)
+    nb = dims[3]
+    dev = coeffs.device
     if raw:
         tsdf = torch.empty((nb, 32, 128), dtype=torch.float32, device=dev)
         color = torch.empty((nb, 4, 32, 128), dtype=torch.bfloat16, device=dev)
@@ -64,10 +59,8 @@ def integrate_affine_cuda(packed, coeffs, idx, count, win_off, res, wy, limit,
         tsdf = torch.empty((vz, vy, vx), dtype=torch.float32, device=dev)
         color = torch.empty((vz, vy, vx, 4), dtype=torch.bfloat16, device=dev)
         visited = None
-    _INTEGRATE_AFFINE(packed.data_ptr(), coeffs.data_ptr(), idx.data_ptr(), count.data_ptr(),
-                      win_off.data_ptr(), tsdf.data_ptr(), color.data_ptr(),
-                      visited.data_ptr() if raw else None, num_k, h, w, nb, vx // BRICK,
-                      vy // BRICK, vz // BRICK, max_bricks, wy, WX2, XSTRIDE2, limit)
+    _INTEGRATE_AFFINE(*ptrs, tsdf.data_ptr(), color.data_ptr(),
+                      visited.data_ptr() if raw else None, *dims, wy, WX2, XSTRIDE2, limit)
     return (tsdf, color, visited) if raw else (tsdf, color)
 
 
@@ -82,7 +75,9 @@ def integrate_affine(frames, affine: AffineTables, cfg: TsdfConfig, mask16: torc
     vx, vy, vz = cfg.res
     if vx % BRICK or vy % BRICK or vz % BRICK:
         raise ValueError(f"the block-major integrator needs a 16-aligned res, got {cfg.res}")
-    packed = pack_frames(frames)
-    idx, _, count = occupied_list(mask16, max_bricks)
-    run = integrate_affine_cuda if native.is_cuda(packed) else integrate_affine_plain
-    return run(packed, affine.coeffs, idx, count, win_off, cfg.res, wy, float(cfg.limit), raw)
+    idx, count, slots = occupied_bricks(mask16, max_bricks)
+    if native.is_cuda(frames.depth):
+        return integrate_affine_cuda(pack_planes(frames), affine.coeffs, idx, count, slots,
+                                     win_off, cfg.res, wy, float(cfg.limit), raw)
+    return integrate_affine_plain(pack_frames(frames), affine.coeffs, idx, count, win_off,
+                                  cfg.res, wy, float(cfg.limit), raw)

@@ -15,7 +15,7 @@ from rgbd_recon_torch import native
 from rgbd_recon_torch.calibration import synthetic
 from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp
 from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse
-from rgbd_recon_torch.ops.tsdf_fast import occupied_list, pack_frames
+from rgbd_recon_torch.ops.tsdf_fast import occupied_bricks, occupied_list, pack_frames, pack_planes
 from rgbd_recon_torch.ops.warp import (piecewise_eval_cuda, piecewise_eval_plain,
                                        warp_screen_cuda, warp_screen_plain, warp_windows)
 from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
@@ -135,11 +135,13 @@ def test_integrate_dense_cuda(dev):
     pipe, depth, color, mv, proj = _small_pipeline(dev)
     d, c, *_ = pipe._inputs(depth, color, mv, proj)
     frames, mask16, _, _, cls = pipe._pre(d, c)
-    idx, _, count = occupied_list(mask16, pipe.max_bricks)
-    args = (pack_frames(frames), pipe.affine.coeffs, idx, count, pipe._win_off, cls,
-            pipe.tsdf_cfg.res, pipe._wy, pipe._wx, pipe._xstride, pipe.tsdf_cfg.limit)
-    vol, cvol = tsdf_dense.integrate_dense_cuda(*args)
-    pvol, pcvol = tsdf_dense.integrate_dense_plain(*args)
+    idx, count, slots = occupied_bricks(mask16, pipe.max_bricks)
+    rest = (pipe._win_off, cls, pipe.tsdf_cfg.res, pipe._wy, pipe._wx, pipe._xstride,
+            pipe.tsdf_cfg.limit)
+    vol, cvol = tsdf_dense.integrate_dense_cuda(pack_planes(frames), pipe.affine.coeffs, idx,
+                                                count, slots, *rest)
+    pvol, pcvol = tsdf_dense.integrate_dense_plain(pack_frames(frames), pipe.affine.coeffs,
+                                                   idx, count, *rest)
     v, pv = vol.float(), pvol.float()
     assert ((v - pv).abs() > 1e-4).float().mean() < 1e-4
     assert ((cvol.float() - pcvol.float()).abs().amax(dim=1) > 1e-2).float().mean() < 1e-3
@@ -168,8 +170,8 @@ def test_piecewise_eval_cuda(dev):
 def _integrator_args(pipe, depth, color, mv, proj):
     d, c, *_ = pipe._inputs(depth, color, mv, proj)
     frames, mask16, _, _, _ = pipe._pre(d, c)
-    idx, _, count = occupied_list(mask16, pipe.max_bricks)
-    return pack_frames(frames), idx, count
+    idx, count, slots = occupied_bricks(mask16, pipe.max_bricks)
+    return pack_frames(frames), idx, count, slots, pack_planes(frames)
 
 
 def _assert_integrator_bound(vol, cvol, pvol, pcvol):
@@ -185,12 +187,13 @@ def test_integrate_affine_cuda(dev):
     """Kernel 6 on a 96^3 volume (Vx % 128 != 0), at the bound between
     formulations."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, n=96)
-    packed, idx, count = _integrator_args(pipe, depth, color, mv, proj)
-    args = (packed, pipe.affine.coeffs, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
-            pipe._wy, pipe.tsdf_cfg.limit)
-    vol, cvol = tsdf_persist.integrate_affine_cuda(*args)
+    packed, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
+    rest = (pipe._win_off, pipe.tsdf_cfg.res, pipe._wy, pipe.tsdf_cfg.limit)
+    vol, cvol = tsdf_persist.integrate_affine_cuda(planes, pipe.affine.coeffs, idx, count,
+                                                   slots, *rest)
     assert vol.dtype == torch.float32 and cvol.shape == (96, 96, 96, 4)
-    _assert_integrator_bound(vol, cvol, *tsdf_persist.integrate_affine_plain(*args))
+    _assert_integrator_bound(vol, cvol, *tsdf_persist.integrate_affine_plain(
+        packed, pipe.affine.coeffs, idx, count, *rest))
 
 
 def test_scatter_dense_cuda(dev):
@@ -217,8 +220,8 @@ def test_integrate_affine_raw_scatter_cuda(dev):
     """Kernel 6 in raw mode, assembled by kernel 8, is kernel 6's
     voxel-order output bit for bit (color after the channel permute)."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, n=96)
-    packed, idx, count = _integrator_args(pipe, depth, color, mv, proj)
-    args = (packed, pipe.affine.coeffs, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
+    _, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
+    args = (planes, pipe.affine.coeffs, idx, count, slots, pipe._win_off, pipe.tsdf_cfg.res,
             pipe._wy, pipe.tsdf_cfg.limit)
     vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*args, raw=True)
     assert int(visited.sum()) == int(count) > 0
@@ -232,11 +235,143 @@ def test_integrate_sparse_cuda(dev):
     """Kernel 7 (the table tier, use_affine=False), at the bound between
     formulations."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, use_affine=False)
-    packed, idx, count = _integrator_args(pipe, depth, color, mv, proj)
+    packed, idx, count, _, _ = _integrator_args(pipe, depth, color, mv, proj)
     args = (packed, pipe.tables.pos_blocked, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
             pipe.tsdf_cfg.limit)
     vol, cvol = tsdf_sparse.integrate_sparse_cuda(*args)
     _assert_integrator_bound(vol, cvol, *tsdf_sparse.integrate_sparse_plain(*args))
+
+
+MAXK = 8   # sensors a kernel of csrc/integrate_dense.cu takes (csrc/fuse.cuh)
+LIMIT = 0.01
+
+
+def _quadratic_case(device, res, k, occupied, max_bricks, classes, seed=0):
+    """Synthetic inputs of kernels 1 and 6 on ``device``: each sensor sees
+    the volume through a tilted, slightly curved warp that maps some voxels
+    outside the image and the [0, 1] depth range, onto a wavy depth
+    surface, so the band holds a shell of voxels; windows jittered so the
+    window clamp bites; ``occupied`` of the bricks marked, the fused ones
+    the first ``max_bricks``; classes FULL/NONE/FRONT/INVALID at random if
+    ``classes``. Returns (packed, coeffs, idx, count, slots, mask16,
+    win_off, cls) for 96 x 160 frames, 32 x 64 windows at x-stride 16."""
+    h, w, wy, wx, xs = 96, 160, 32, 64, 16
+    rng = np.random.default_rng(seed)
+    vx, vy, vz = res
+    nbx, nby, nbz = vx // 16, vy // 16, vz // 16
+    nb = nbx * nby * nbz
+    b = np.arange(nb)
+    cz, cy, cx = (b // (nby * nbx)) * 16 + 8.0, ((b // nbx) % nby) * 16 + 8.0, (b % nbx) * 16 + 8.0
+    coeffs = np.zeros((k, nb, 4, 10), np.float32)   # basis 1, z, y, x, zz, yy, xx, zy, zx, yx
+    for s in range(k):
+        su, sv, sd = rng.uniform(1.0, 1.15, 3) * (1.0, 1.0, 0.8)
+        ou, ov, od = rng.uniform(-0.07, 0.0, 3) + (0.0, 0.0, 0.13)
+        tz, tx, q = rng.uniform(-0.05, 0.05, 3)
+        coeffs[s, :, 0, 0] = ou + su * cx / vx + tz * cz / vz
+        coeffs[s, :, 0, 1], coeffs[s, :, 0, 3], coeffs[s, :, 0, 6] = tz / vz, su / vx, q * 1e-4
+        coeffs[s, :, 1, 0] = ov + sv * cy / vy
+        coeffs[s, :, 1, 2], coeffs[s, :, 1, 5] = sv / vy, q * 1e-4
+        coeffs[s, :, 2, 0] = od + sd * cz / vz + tx * cx / vx
+        coeffs[s, :, 2, 1], coeffs[s, :, 2, 3], coeffs[s, :, 2, 7] = sd / vz, tx / vx, q * 1e-5
+    py, px = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    packed = np.empty((k, h, w, 6), np.float32)
+    for s in range(k):
+        wave = np.sin(2 * np.pi * px / w + s) * np.cos(2 * np.pi * py / h)
+        packed[s, ..., 0] = 0.5 + 0.15 * wave + rng.uniform(0, 1e-3, (h, w))
+        packed[s, ..., 1] = rng.uniform(0.3, 1.0, (h, w)) * (rng.random((h, w)) > 0.05)
+        packed[s, ..., 2] = rng.random((h, w)) > 0.1     # silhouette: 10% background
+        packed[s, ..., 3:] = rng.random((h, w, 3))
+    u_c, v_c = coeffs[:, :, 0, 0] * w, coeffs[:, :, 1, 0] * h
+    y0 = np.clip(np.round(v_c - wy / 2) + rng.integers(-4, 5, (k, nb)), 0, h - wy)
+    xb = np.clip(np.floor((u_c - wx / 2) / xs) + rng.integers(-1, 2, (k, nb)), 0, (w - wx) // xs)
+    win_off = np.stack([y0, xb], -1).astype(np.int32)
+    cls = rng.choice(4, (k, nb), p=[0.55, 0.15, 0.15, 0.15]).astype(np.int32) if classes else None
+    mask = np.zeros(nb, bool)
+    mask[rng.permutation(nb)[:int(occupied * nb)]] = True
+    m16 = torch.from_numpy(mask.reshape(nbz, nby, nbx)).to(device)
+    idx, count, slots = occupied_bricks(m16, max_bricks)
+
+    def put(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+
+    return put(packed), put(coeffs), idx, count, slots, m16, put(win_off), put(cls)
+
+
+def _bricks(vol, res):
+    """[Vz, Vy, Vx, ...] -> [NB, 4096, ...] (z-major inside a brick)."""
+    vx, vy, vz = res
+    rest = vol.shape[3:]
+    v = vol.reshape(vz // 16, 16, vy // 16, 16, vx // 16, 16, *rest)
+    v = v.permute(0, 2, 4, 1, 3, 5, *range(6, 6 + len(rest)))
+    return v.reshape((vx // 16) * (vy // 16) * (vz // 16), 4096, *rest)
+
+
+QUADRATIC_CASES = {
+    # case: (res dense, res block-major, K, occupied share, capacity share, classes)
+    "empty": ((128, 128, 128), (96, 96, 96), 4, 0.0, 1.0, True),
+    "dropped": ((128, 128, 128), (96, 96, 96), 4, 0.4, 0.5, True),
+    "classes": ((128, 128, 128), None, 4, 0.4, 1.0, True),
+    "k1": ((128, 128, 128), (96, 96, 96), 1, 0.4, 1.0, False),
+    "kmax": ((128, 128, 128), (96, 96, 96), MAXK, 0.4, 1.0, False),
+    "noncubic": ((128, 48, 80), (80, 48, 112), 4, 0.4, 1.0, False),
+}
+
+
+@pytest.mark.parametrize("mode,case", [(m, c) for c in QUADRATIC_CASES
+                                       for m in ("dense", "affine", "raw")
+                                       if m == "dense" or QUADRATIC_CASES[c][1]])
+def test_integrate_quadratic_cases_cuda(dev, mode, case):
+    """Kernel 1 (dense) and kernel 6 (voxel order, raw) against their plain
+    versions at the integrator bound (tests/test_tsdf_affine.py:109-116) on
+    synthetic frames: no brick occupied (the whole volume holds the clear
+    values), more occupied bricks than the capacity (the dropped ones keep
+    the clear values), all four classes, K = 1 and K = 8, a non-cubic
+    volume."""
+    res_dense, res_block, k, occ, cap, classes = QUADRATIC_CASES[case]
+    res = res_dense if mode == "dense" else res_block
+    nb = (res[0] // 16) * (res[1] // 16) * (res[2] // 16)
+    max_bricks = max(1, int(cap * occ * nb)) if occ else nb
+    packed, coeffs, idx, count, slots, m16, win_off, cls = _quadratic_case(
+        dev, res, k, occ, max_bricks, classes and mode == "dense")
+    planes = (packed[..., :4].contiguous(), packed[..., 4:].contiguous())   # pack_planes
+    n_fused = int(count)
+    dropped = m16.reshape(-1) & (slots < 0)
+    assert n_fused == min(int(m16.sum()), max_bricks)
+    assert (int(dropped.sum()) > 0) == (case == "dropped")
+    kern = native.KERNELS["integrate_dense" if mode == "dense" else "integrate_affine"]
+    before = kern.launches
+    if mode == "dense":
+        got = tsdf_dense.integrate_dense_cuda(planes, coeffs, idx, count, slots, win_off, cls,
+                                              res, 32, 64, 16, LIMIT)
+        want = tsdf_dense.integrate_dense_plain(packed, coeffs, idx, count, win_off, cls, res,
+                                                32, 64, 16, LIMIT)
+        cdim = 1
+    else:
+        got = tsdf_persist.integrate_affine_cuda(planes, coeffs, idx, count, slots, win_off,
+                                                 res, 32, LIMIT, raw=mode == "raw")
+        want = tsdf_persist.integrate_affine_plain(packed, coeffs, idx, count, win_off, res,
+                                                   32, LIMIT, raw=mode == "raw")
+        cdim = 1 if mode == "raw" else -1
+    assert kern.launches == before + 1
+    v, c = got[0].float(), got[1].float()
+    pv, pc = want[0].float(), want[1].float()
+    if mode == "raw":
+        visited = got[2]
+        assert torch.equal(visited, want[2]) and int(visited.sum()) == n_fused
+        v, c, pv, pc = v[visited], c[visited], pv[visited], pc[visited]
+    else:
+        clear_v = torch.full_like(v, -LIMIT).to(got[0].dtype).float()
+        vb, cb = _bricks(v, res), _bricks(c.movedim(cdim, -1), res)
+        idle = slots < 0          # every brick the kernel does not fuse
+        assert torch.equal(vb[idle], _bricks(clear_v, res)[idle])
+        assert not cb[idle].any()
+    if n_fused == 0:
+        assert v.numel() == 0 or (torch.equal(v, pv) and torch.equal(c, pc))
+        return
+    assert ((v - pv).abs() > 1e-4).float().mean() < 1e-4
+    assert ((c - pc).abs().amax(dim=cdim) > 1e-2).float().mean() < 1e-3
+    occ_v, pocc = int((v > -LIMIT + 1e-9).sum()), int((pv > -LIMIT + 1e-9).sum())
+    assert pocc > 1000 and abs(occ_v - pocc) <= max(100, 0.002 * pocc)
 
 
 def test_slice_cuda_matches_cpu(dev):

@@ -118,3 +118,37 @@ def test_wrappers_reject_other_devices():
     d = torch.zeros((1, 8, 8), device="meta")
     with pytest.raises(ValueError):
         bilateral_accum(d, torch.zeros((1, 2), device="meta"))
+
+
+@pytest.mark.parametrize("max_bricks", [0, 1, 37, 64, 90])
+def test_brick_slots_match_occupied_list(max_bricks):
+    """The per-brick slot map of the dense integration kernels
+    (occupied_bricks) names the same fused bricks, in the same slots, as
+    the port's occupied_list and the JAX package's: the first
+    ``max_bricks`` occupied bricks in ascending order; -1 for unoccupied
+    bricks and for occupied ones past the capacity (64 of 120 bricks
+    occupied, so 37 and 1 drop some)."""
+    from rgbd_recon_tpu.ops.tsdf_fast import occupied_list as joccupied_list
+    from rgbd_recon_torch.ops.tsdf_fast import occupied_bricks, occupied_list
+
+    rng = np.random.default_rng(11)
+    mask = np.zeros(120, bool)
+    mask[rng.permutation(120)[:64]] = True
+    mask = mask.reshape(4, 5, 6)
+    m16 = torch.from_numpy(mask)
+    bidx, bcount, slots = occupied_bricks(m16, max_bricks)
+    assert slots.dtype == torch.int32 and slots.shape == (120,)
+    idx, valid, count = occupied_list(m16, max_bricks)
+    assert torch.equal(bidx, idx) and torch.equal(bcount, count)
+    n = int(count[0])
+    assert int(valid.sum()) == n
+    assert n == min(64, max_bricks)
+    fused = np.flatnonzero(slots.numpy() >= 0)
+    np.testing.assert_array_equal(fused, idx.numpy()[:n])
+    np.testing.assert_array_equal(slots.numpy()[fused], np.arange(n))
+    assert (slots.numpy()[~mask.ravel()] == -1).all()
+    dropped = np.flatnonzero(mask.ravel())[n:]
+    assert (slots.numpy()[dropped] == -1).all()
+    if max_bricks:
+        jidx, jvalid = joccupied_list(jnp.asarray(mask), max_bricks)
+        np.testing.assert_array_equal(np.asarray(jidx)[np.asarray(jvalid)], fused)
