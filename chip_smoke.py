@@ -26,8 +26,12 @@ a result line):
               distortion, NNI-like bake warp, offset rgb cameras; fwd_res
               (128, 256, 128), inv_res 128^3), rig and frames built on the
               card: the pixel-warp gate's tier log (piecewise, 48 knots),
-              the bake seconds, kernel 5 (piecewise_eval) against its plain
-              version at M=1 and M=5, and the path with kernels 1-5;
+              the bake seconds, kernel 5 (piecewise_eval) bit for bit
+              against its plain version at each distinct call of the
+              warm-up frame (xyz M=1 C=3, uv M=1 C=2, the normal stencil
+              M=5 C=3 with its five offsets), and the path with kernels
+              1-5, its kernel 5 launches counted by call (xyz 2, uv 1,
+              stencil 1 a frame);
 5. block      the pinhole rig at 240^3 (Vx % 128 = 112: the block-major
               integrator): kernel 6 (integrate_affine) and its path; on the
               path's recorded kernel-6 arguments, kernel 6 in raw mode
@@ -49,15 +53,21 @@ a result line):
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
 calls, the device's time alone; the kernel's eager time is printed too),
-its plain version's time (eager: some plain versions sync with the host),
-and the bound: the larger of its bytes over 3.35 TB/s and its fp32
-operations over 67 TFLOP/s (H100 SXM data sheet), from this run's shapes
-and occupied counts.
-The last three lines are a JSON object with one entry per kernel, the
-card's name and power limit, and the result object.
+its time with the L2 cold (``cold_ms``: each call after a 128 MB read, that
+read's own time subtracted), its plain version's time (eager: some plain
+versions sync with the host), its launches on its path's run (per call
+site for warp_screen and kernel 5), and the bound: the larger of its bytes
+over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM data
+sheet), from this run's shapes, occupied counts and valid points.
+Phase 3 also prints the launch floor once: an empty kernel at
+mark_bricks' grid by CUDA-graph replay, alone and after a memset of its
+counts. The last three lines are a JSON object with one entry per kernel
+(one per timed call of kernel 5), the card's name and power limit, and
+the result object.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -72,6 +82,8 @@ DISTORT = 0.004            # bench.py BENCH_DISTORT: ~4 mm bake deformation
 PATH_KERNELS = ("bilateral_accum", "mark_bricks", "warp_screen")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
+FLUSH_BYTES = 128 << 20    # read between cold calls: 2.5x the H100's 50 MB L2
+_FLUSH = []
 # fp32 operations of one bilateral tap, an FMA counted as two: s - dc, the
 # FMA 1 - dist * inv, gs * gr, wr += gr, wa += ws, the FMA bf += ws * s (the
 # clamp at 0 is a max, not counted)
@@ -121,6 +133,70 @@ class Recorder:
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
+
+
+class CallCounter:
+    """Wraps a module-level function to count its calls by ``key(args,
+    kwargs)``, keeping no arguments and adding no sync (for the path's own
+    run)."""
+
+    def __init__(self, module, name: str, key):
+        self.module, self.name, self.key = module, name, key
+        self.fn = getattr(module, name)
+        self.counts = {}
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        k = self.key(args, kwargs)
+        self.counts[k] = self.counts.get(k, 0) + 1
+        return self.fn(*args, **kwargs)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def _piecewise_call(args, kwargs) -> str:
+    """Which of the frame's kernel 5 calls this is: the normal stencil (with
+    offsets), xyz (C = 3) or uv (C = 2)."""
+    if kwargs.get("offsets") is not None:
+        return "stencil"
+    return "xyz" if args[1].shape[-1] == 3 else "uv"
+
+
+def _time_cold_ms(fn, reps: int, rounds: int = 3) -> float:
+    """Mean ms of one call with the L2 cold: a CUDA graph of ``reps`` times
+    (a read of FLUSH_BYTES, the call) against one of the ``reps`` reads
+    alone, replayed in turn ``rounds`` times. The read evicts the call's
+    inputs and writes back its output, as a frame's other work between two
+    calls does; the difference of the two graphs is the call's time."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(FLUSH_BYTES // 4, device="cuda"))
+    buf = _FLUSH[0]
+    fn()
+    torch.cuda.synchronize()
+    graphs = []
+    for with_call in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                buf.sum()
+                if with_call:
+                    fn()
+        g.replay()
+        graphs.append(g)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = [0.0, 0.0]
+    for _ in range(rounds):
+        for i, g in enumerate(graphs):
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            total[i] += start.elapsed_time(end)
+    return (total[0] - total[1]) / (rounds * reps)
 
 
 def _time_ms(fn, reps: int, graph: bool = False) -> float:
@@ -265,21 +341,24 @@ def main() -> int:
                library=None):
         """Time a kernel, its plain version and its library yardstick on the
         same inputs; ``nbytes``/``ops``: the work of this call (each input
-        read once, each output written once)."""
+        read once, each output written once, as much as this run's data
+        needs)."""
         ms, eager_ms = _time_ms(kern, reps, graph=True), _time_ms(kern, reps)
+        cold_ms = _time_cold_ms(kern, reps)
         plain_ms = _time_ms(plain, reps)
         lib_ms = _time_ms(library, reps, graph=True) if library is not None else None
         bound_ms, bound_by = _bound(nbytes, ops)
         print(f"kernel {name}: max_abs_err {err['max']:.3e} p99.5 {err['p995']:.3e} "
-              f"({tol_txt}) -> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (graph replay; "
-              f"eager {eager_ms:.4f}) vs plain {plain_ms:.4f} ms (eager), library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G fp32 ops)")
+              f"({tol_txt}) -> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (graph replay; L2 "
+              f"cold {cold_ms:.4f}; eager {eager_ms:.4f}) vs plain {plain_ms:.4f} ms "
+              f"(eager), library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, {ops / 1e9:.3f} G fp32 "
+              f"ops; cold at {bound_ms / max(cold_ms, 1e-9):.0%} of it)")
         if not ok:
             raise RuntimeError(f"kernel {name} disagrees with its plain version")
         results[name] = dict(source=route_src, replaces=replaces, max_abs_err=err["max"],
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=lib_ms)
+                             ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms)
 
     def warm_up(label, pipe, frame, mv, proj, wrap):
         """One step with Recorders on the (module, name) pairs of ``wrap``."""
@@ -297,18 +376,28 @@ def main() -> int:
                 raise RuntimeError(f"the {label} warm-up frame never reached {key}")
         return recs
 
-    def drive(label, pipe, frames, mv, proj, need, n_frames, res):
+    def drive(label, pipe, frames, mv, proj, need, n_frames, res, split=None):
         """The path's run: counters to 0, step_timed over distinct frames,
-        counters read; every kernel of ``need`` must have launched."""
+        counters read; every kernel of ``need`` must have launched.
+        ``split``: kernel -> (module, name, key) of the functions that
+        launch it, each call counted under the kernel entry ``key(args,
+        kwargs)`` names; the entries' counts must sum to the kernel's."""
         for k in native.KERNELS.values():
             k.launches = 0
         pipe.timers.reset()
         outs = []
+        counters = {kern: [CallCounter(*spec) for spec in specs]
+                    for kern, specs in (split or {}).items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(n_frames):
-            outs.append(pipe.step_timed(*frames[i % len(frames)], mv, proj))
-        torch.cuda.synchronize()
+        try:
+            for i in range(n_frames):
+                outs.append(pipe.step_timed(*frames[i % len(frames)], mv, proj))
+            torch.cuda.synchronize()
+        finally:
+            for ccs in counters.values():
+                for cc in ccs:
+                    cc.restore()
         wall = (time.perf_counter() - t0) / n_frames
         counts = {name: k.launches for name, k in native.KERNELS.items()}
         print(f"{label}: launches during {n_frames} frames: {counts}")
@@ -317,6 +406,16 @@ def main() -> int:
             raise RuntimeError(f"{label}: kernels never launched on the path: {missing}")
         for name in need:
             launches.setdefault(name, counts[name])
+        for kern, ccs in counters.items():
+            by_entry = {}
+            for cc in ccs:
+                for entry, c in cc.counts.items():
+                    by_entry[entry] = by_entry.get(entry, 0) + c
+            print(f"{label}: {kern} launches by call: {by_entry}")
+            if sum(by_entry.values()) != counts[kern]:
+                raise RuntimeError(f"{label}: {kern}'s calls {by_entry} do not sum to its "
+                                   f"{counts[kern]} launches")
+            launches.update(by_entry)
         for name in pl.STAGE_TIMERS:
             t = pipe.timers.timers[name]
             print(f"{label}: stage {name}: mean {t.mean * 1e3:.3f} ms, min "
@@ -391,20 +490,39 @@ def main() -> int:
            lambda: pp.bilateral_accum_plain(d_in, lim_in), 20,
            16 * d_in.numel() + lim_in.numel() * 4, d_in.numel() * 169 * TAP_OPS)
 
-    # mark_bricks: the world points of all 4 sensors, integer-exact
+    # mark_bricks: the world points of all 4 sensors, integer-exact; its
+    # work: every valid flag, the 12 bytes of each valid point (the only
+    # points it reads) and the counts written
     (w_in, v_in, grid), _ = recs["mark_bricks"].calls[0]
     got = bricks.mark_bricks(w_in, v_in, grid).to(torch.int64)
     want = bricks.mark_bricks_plain(w_in, v_in, grid).to(torch.int64)
+    n_valid = int(v_in.sum())
+    print(f"  mark_bricks: {n_valid} valid points of {v_in.numel()}, {got.numel()} bins")
     report("mark_bricks", "rgbd_recon_torch/csrc/mark_bricks.cu",
            "rgbd_recon_tpu/ops/bricks_pallas.py:100", _errs(got, want), "exact",
            bool(torch.equal(got, want)) and int(got.sum()) > 0,
            lambda: bricks.mark_bricks(w_in, v_in, grid),
            lambda: bricks.mark_bricks_plain(w_in, v_in, grid), 20,
-           w_in.numel() * 4 + v_in.numel() + got.numel() * 4, v_in.numel() * 20)
+           v_in.numel() + 12 * n_valid + got.numel() * 4, n_valid * 20)
+
+    # the floor under a small kernel's graph-replayed time: an empty kernel
+    # at mark_bricks' grid, alone and after the memset of its counts
+    floor = native.library().rr_launch_floor
+    floor.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
+    floor.restype = ctypes.c_int
+    fbuf = torch.empty(got.numel(), dtype=torch.int32, device=dev)
+    fblocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    t_floor = [_time_ms(lambda nb=nb: floor(fbuf.data_ptr(), nb, fblocks, 256,
+                                            torch.cuda.current_stream().cuda_stream), 20,
+                        graph=True) for nb in (0, fbuf.numel() * 4)]
+    print(f"launch floor: an empty {fblocks}x256 kernel {t_floor[0]:.4f} ms, after a memset "
+          f"of {fbuf.numel() * 4} bytes {t_floor[1]:.4f} ms (graph replay; {card})")
 
     # warp_screen: registration (sensor 0 color) and the sweep->screen warp;
     # yardstick F.grid_sample (bilinear, border, align_corners) on the same
     # image in NCHW, the same function wherever no tile's window clamp bites
+    ws_entry = {}
     for key, label in (("warp_screen_registration", "registration"),
                        ("warp_screen_screen", "screen")):
         (img, fy, fx, tile), kw = recs[key].calls[0]
@@ -431,7 +549,8 @@ def main() -> int:
               f"{clamped.numel()} pixels; grid_sample vs kernel elsewhere: max "
               f"{float(dev_gs[~clamped].max()):.3e}")
         h, w = fy.shape
-        report(f"warp_screen[{label} {(ti, si, c)}->{tuple(fy.shape)}]",
+        ws_entry[label] = f"warp_screen[{label} {(ti, si, c)}->{tuple(fy.shape)}]"
+        report(ws_entry[label],
                "rgbd_recon_torch/csrc/warp_screen.cu",
                "rgbd_recon_tpu/ops/warp_pallas.py:116", _errs(got, want),
                "atol 1e-5 rtol 1e-5", bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5)),
@@ -456,7 +575,9 @@ def main() -> int:
                                       tcfg.res, 10, 3 * 40 + 8 + 4, FUSE_OPS))
 
     drive("pinhole", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_dense",),
-          PINHOLE_FRAMES, cfg.tsdf_res)
+          PINHOLE_FRAMES, cfg.tsdf_res, split={"warp_screen": [
+              (pp, "warp_screen", lambda a, kw: ws_entry["registration"]),
+              (rmf, "warp_screen", lambda a, kw: ws_entry["screen"])]})
     if "--profile" in sys.argv[1:]:
         _profile_frame(pipe, frames[1], mv, proj, card)
     del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls
@@ -487,30 +608,44 @@ def main() -> int:
     if not isinstance(pipe._warp, warp_ops.PiecewiseWarp) or not pipe._dense_emit:
         raise RuntimeError("the distorted rig is not on the piecewise + dense-emit path")
 
-    # piecewise_eval at its main-path calls: M=1 (xyz) and M=5 (normals)
-    calls = {c[0][0].shape[0]: c[0] for c in recs["piecewise_eval"].calls}
-    by_m = {}
-    for c in recs["piecewise_eval"].calls:
-        by_m[c[0][0].shape[0]] = by_m.get(c[0][0].shape[0], 0) + 1
-    print(f"  piecewise_eval calls in the warm-up frame by M: {dict(sorted(by_m.items()))}")
-    for m in (1, 5):
-        D, a, b, r, d_min, d_max = calls[m]
-        dc, cc = warp_ops.knot_coords(D, d_min, d_max, r.shape[2])
-        got = warp_ops.piecewise_eval_cuda(dc, cc, a, b, r)
-        want = warp_ops.piecewise_eval_plain(dc, cc, a, b, r)
-        report(f"piecewise_eval[M={m} {tuple(D.shape)} C={a.shape[-1]} S={r.shape[2]}]",
+    # piecewise_eval at each distinct call of the frame: xyz (M=1, C=3:
+    # bilateral_lab's and quality's), uv (M=1, C=2) and the normal stencil
+    # (M=5, C=3, one offset a tap)
+    pcalls = {}
+    for args, kw in recs["piecewise_eval"].calls:
+        pcalls.setdefault(_piecewise_call(args, kw), []).append((args, kw.get("offsets")))
+    by_call = {key: len(v) for key, v in pcalls.items()}
+    print(f"  piecewise_eval launches in the warm-up frame by call: {by_call}")
+    if by_call != {"xyz": 2, "uv": 1, "stencil": 1}:
+        raise RuntimeError(f"a distorted frame should launch kernel 5 4 times: {by_call}")
+    pe_entry = {}
+    for key in ("xyz", "uv", "stencil"):
+        (D, a, b, r, d_min, d_max), offs = pcalls[key][0]
+        m, k, h, w = D.shape
+        c, s = r.shape[1], r.shape[2]
+        got = warp_ops.piecewise_eval_cuda(D, a, b, r, d_min, d_max, offs)
+        want = warp_ops.piecewise_eval_plain(D, a, b, r, d_min, d_max, offs)
+        pe_entry[key] = f"piecewise_eval[{key} M={m} C={c} {(k, h, w)} S={s}]"
+        report(pe_entry[key],
                "rgbd_recon_torch/csrc/piecewise_eval.cu",
                "rgbd_recon_tpu/ops/piecewise_pallas.py:45", _errs(got, want),
                "bitwise: the same float32 operations, no FMA contraction",
                bool(torch.equal(got, want)),
-               lambda: warp_ops.piecewise_eval_cuda(dc, cc, a, b, r),
-               lambda: warp_ops.piecewise_eval_plain(dc, cc, a, b, r), 20,
-               # dc, cc, A, B, the two knots that bracket each pixel's depth, out
-               8 * dc.numel() + 8 * a.numel() + min(r.shape[2], 2 * m) * r[:, :, 0].numel() * 2
-               + got.numel() * 4, got.numel() * 12)
+               lambda: warp_ops.piecewise_eval_cuda(D, a, b, r, d_min, d_max, offs),
+               lambda: warp_ops.piecewise_eval_plain(D, a, b, r, d_min, d_max, offs), 20,
+               # per map-pixel D, two knots a channel, the output; per pixel A, B
+               m * k * h * w * (4 + 8 * c) + k * h * w * 8 * c,
+               # per map-pixel the knot coordinate and weights (8), 6 a channel
+               m * k * h * w * (8 + 6 * c))
     drive("distorted", pipe, dframes, mv, proj,
-          PATH_KERNELS + ("integrate_dense", "piecewise_eval"), NUM_FRAMES, dcfg.tsdf_res)
-    del pipe, recs, calls, D, a, b, r, dc, cc, got, want, dframes
+          PATH_KERNELS + ("integrate_dense", "piecewise_eval"), NUM_FRAMES, dcfg.tsdf_res,
+          split={"piecewise_eval": [(warp_ops, "piecewise_eval",
+                                     lambda a, kw: pe_entry[_piecewise_call(a, kw)])]})
+    per_call = [launches[pe_entry[key]] for key in ("xyz", "uv", "stencil")]
+    if per_call != [2 * NUM_FRAMES, NUM_FRAMES, NUM_FRAMES]:
+        raise RuntimeError(f"kernel 5 launched {per_call} times (xyz, uv, stencil) in "
+                           f"{NUM_FRAMES} distorted frames, not 2, 1, 1 a frame")
+    del pipe, recs, pcalls, D, a, b, r, got, want, dframes
 
     # -- 5. block-major integrator: pinhole rig at 240^3 (kernel 6) ----------
     bcfg = _bench_config(bbox, 240)
@@ -696,7 +831,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name if name in launches else name.split("[")[0]],
          "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "ms": r["ms"], "cold_ms": r["cold_ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in results.items()
     ]

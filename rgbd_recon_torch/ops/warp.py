@@ -13,9 +13,18 @@ kernel is ``csrc/warp_screen.cu``; ``warp_screen_plain`` is the same
 function in PyTorch. The kernel reads a 9-channel source padded to 12
 channels (aligned 16-byte taps): the renderer packs its sweep image so and
 passes ``channels=9``.
+
+``piecewise_eval`` is the port of the TPU kernel ``piecewise_eval_pallas``
+(``csrc/piecewise_eval.cu``, twin ``piecewise_eval_plain``). The TPU
+package evaluates the shifted taps of the normal stencil by shifting each
+depth map against the table and the result back, then fixing the border
+line; here each map carries its pixel offset and the kernel reads the
+table at the edge-clamped shifted pixel, the same float operations on the
+same table entries.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -125,65 +134,98 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
 # piecewise-linear-in-depth warp (kernel 5)
 
 
-def piecewise_eval_plain(dc: torch.Tensor, cc: torch.Tensor, a: torch.Tensor,
-                         b: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """PyTorch form of kernel 5 (see piecewise_eval) on the clamped depths
-    ``dc`` and knot coordinates ``cc`` f32[M, K, H, W]: ``a + dc b`` plus
-    the two knots that bracket ``cc`` with hat weights, in knot order —
-    the other knots' weights are exactly 0, so the sum over all knots is
-    the same. Returns f32[M, K, H, W, C]."""
-    s = r.shape[2]
+NEIGHBORHOOD = ((0, 0), (1, 0), (-1, 0), (0, -1), (0, 1))   # pre_normal.fs: c, +y, -y, -x, +x
+MAX_OFFSET_MAPS = 8     # maps one kernel 5 call takes with offsets (csrc/piecewise_eval.cu)
+
+
+def _tap_pixels(offsets, m: int, h: int, w: int, device) -> torch.Tensor:
+    """The flat table pixel each of the ``m`` maps reads at each output
+    pixel, (clamp(y + dy), clamp(x + dx)) edge-clamped: i64[M, H, W]."""
+    offs = offsets if offsets is not None else ((0, 0),) * m
+    ys = torch.stack([torch.clamp(torch.arange(h, device=device) + dy, 0, h - 1)
+                      for dy, _ in offs])
+    xs = torch.stack([torch.clamp(torch.arange(w, device=device) + dx, 0, w - 1)
+                      for _, dx in offs])
+    return ys[:, :, None] * w + xs[:, None, :]
+
+
+def piecewise_eval_plain(D: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         r: torch.Tensor, d_min: float, d_max: float,
+                         offsets=None) -> torch.Tensor:
+    """PyTorch form of kernel 5 (see piecewise_eval): per map the clamped
+    depth ``dc`` and knot coordinate ``cc``, then ``a + dc b`` plus the two
+    knots that bracket ``cc`` with hat weights, in knot order — the other
+    knots' weights are exactly 0, so the sum over all knots is the same —
+    with a, b and r read at each map's offset pixel by index gathers."""
+    m, k, h, w = D.shape
+    c, s = r.shape[1], r.shape[2]
+    dev = D.device
+    dc = torch.clamp(D, d_min, d_max)
+    # the divisor is a 0-d tensor on D's device: a CUDA tensor divided by a
+    # host scalar is multiplied by its reciprocal instead, the kernel divides
+    span = torch.full((), d_max - d_min, dtype=torch.float32, device=dev)
+    cc = (dc - d_min) / span * (s - 1)
     i0 = torch.floor(cc)
     w0 = torch.clamp(1.0 - (cc - i0).abs(), min=0.0)
     w1 = torch.clamp(1.0 - (cc - (i0 + 1.0)).abs(), min=0.0)
-    idx0 = i0.to(torch.int64).permute(1, 0, 2, 3)            # [K, M, H, W]
-    idx1 = torch.clamp(idx0 + 1, max=s - 1)
+    s0 = i0.to(torch.int64)
+    s1 = torch.clamp(s0 + 1, max=s - 1)
+    pix = _tap_pixels(offsets, m, h, w, dev)[:, None]                 # [M, 1, H, W]
+    kk = torch.arange(k, device=dev)[:, None, None]
+    at = a.reshape(k, h * w, c)[kk, pix]                               # [M, K, H, W, C]
+    bt = b.reshape(k, h * w, c)[kk, pix]
+    rf = r.reshape(k, c, s * h * w)
+    k5, c5 = kk[..., None], torch.arange(c, device=dev)
 
-    def knot(idx):   # r[k, c, idx[k, m, h, w], h, w] -> [M, K, C, H, W]
-        i = idx[:, None].expand(-1, r.shape[1], -1, -1, -1)
-        return torch.gather(r, 2, i).to(torch.float32).permute(2, 0, 1, 3, 4)
+    def knot(si):   # r[k, c, si, tap pixel] -> [M, K, H, W, C]
+        return rf[k5, c5, (si * (h * w) + pix)[..., None]].to(torch.float32)
 
-    acc = a.permute(0, 3, 1, 2)[None] + dc[:, :, None] * b.permute(0, 3, 1, 2)[None]
-    acc = acc + w0[:, :, None] * knot(idx0)
-    acc = acc + w1[:, :, None] * knot(idx1)
-    return acc.permute(0, 1, 3, 4, 2)
+    acc = at + dc[..., None] * bt
+    acc = acc + w0[..., None] * knot(s0)
+    return acc + w1[..., None] * knot(s1)
 
 
-_PIECEWISE = native.Kernel("piecewise_eval", [native.P] * 6 + [native.I] * 6)
+_PIECEWISE = native.Kernel("piecewise_eval", [native.P] * 6 + [native.I] * 6
+                           + [native.F] * 3)
 
 
-def piecewise_eval_cuda(dc, cc, a, b, r) -> torch.Tensor:
+def piecewise_eval_cuda(D, a, b, r, d_min: float, d_max: float, offsets=None) -> torch.Tensor:
     """Kernel 5 on the card (``csrc/piecewise_eval.cu``); the arguments of
-    ``piecewise_eval_plain``."""
-    m, k, h, w = dc.shape
+    ``piecewise_eval_plain``. Offsets: at most MAX_OFFSET_MAPS maps."""
+    m, k, h, w = D.shape
     c, s = r.shape[1], r.shape[2]
-    dev = dc.device
-    native.check(dc, "dc", torch.float32, (m, k, h, w), dev)
-    native.check(cc, "cc", torch.float32, (m, k, h, w), dev)
+    dev = D.device
+    native.check(D, "D", torch.float32, (m, k, h, w), dev)
     native.check(a, "a", torch.float32, (k, h, w, c), dev)
     native.check(b, "b", torch.float32, (k, h, w, c), dev)
     native.check(r, "r", torch.bfloat16, (k, c, s, h, w), dev)
+    if c not in (2, 3):
+        raise ValueError(f"piecewise_eval kernel: {c} channels; takes 3 (xyz) or 2 (uv)")
+    if max(m * k * h * w * c, r.numel()) >= 2 ** 31:
+        raise ValueError("piecewise_eval kernel: 32-bit indices; a tensor reaches 2^31 elements")
+    offs = None
+    if offsets is not None:
+        if len(offsets) != m or m > MAX_OFFSET_MAPS:
+            raise ValueError(f"piecewise_eval kernel: {len(offsets)} offsets for {m} maps "
+                             f"(one per map, at most {MAX_OFFSET_MAPS})")
+        offs = (ctypes.c_int * (2 * MAX_OFFSET_MAPS))(*(int(v) for o in offsets for v in o))
     out = torch.empty((m, k, h, w, c), dtype=torch.float32, device=dev)
-    _PIECEWISE(dc.data_ptr(), cc.data_ptr(), a.data_ptr(), b.data_ptr(), r.data_ptr(),
-               out.data_ptr(), m, k, c, s, h, w)
+    _PIECEWISE(D.data_ptr(), a.data_ptr(), b.data_ptr(), r.data_ptr(), offs, out.data_ptr(),
+               m, k, c, s, h, w, d_min, d_max, d_max - d_min)
     return out
 
 
-def knot_coords(D: torch.Tensor, d_min: float, d_max: float, knots: int):
-    """The clamped depths and knot coordinates (dc, cc) f32[M, K, H, W] of
-    kernel 5's two forms, computed outside them as the TPU wrapper does."""
-    dc = torch.clamp(D, d_min, d_max).contiguous()
-    return dc, ((dc - d_min) / (d_max - d_min) * (knots - 1)).contiguous()
-
-
 def piecewise_eval(D: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                   r: torch.Tensor, d_min: float, d_max: float) -> torch.Tensor:
+                   r: torch.Tensor, d_min: float, d_max: float, *,
+                   offsets=None) -> torch.Tensor:
     """``A + d B + sum_s hat(c(d) - s) R[s]`` for M stacked depth maps — the
     output of ``piecewise_eval_pallas``. D f32[M, K, H, W]; a, b
-    f32[K, H, W, C]; r bf16[K, C, S, H, W]. Returns f32[M, K, H, W, C]."""
-    dc, cc = knot_coords(D, d_min, d_max, r.shape[2])
+    f32[K, H, W, C]; r bf16[K, C, S, H, W]. Returns f32[M, K, H, W, C].
+    ``offsets``: one (dy, dx) per map; map m then reads the table at the
+    edge-clamped pixel (y + dy, x + dx): out[m, k, y, x] = P[k, clamp(y +
+    dy), clamp(x + dx)](D[m, k, y, x])."""
     run = piecewise_eval_cuda if native.is_cuda(D) else piecewise_eval_plain
-    return run(dc, cc, a, b, r)
+    return run(D, a, b, r, d_min, d_max, offsets)
 
 
 class PiecewiseWarp(NamedTuple):
@@ -209,62 +251,28 @@ class PiecewiseWarp(NamedTuple):
     def knots(self) -> int:
         return self.xyz_r.shape[2]
 
-    def _eval_multi(self, D, a, b, r):
+    def _eval(self, D, a, b, r, offsets=None):
         """M stacked depth maps against one table: D [M, K, H, W] ->
-        [M, K, H, W, C] (kernel 5 on the card)."""
-        return piecewise_eval(D.contiguous(), a, b, r, self.d_min, self.d_max)
-
-    def _eval_line(self, a_l, b_l, r_l, d_l):
-        """Line evaluation (border fixes) as a one-row image through kernel
-        5: a_l/b_l [K, N, C], r_l [K, C, S, N], d_l [K, N] -> [K, N, C]. The
-        JAX loop over all S knots adds the same two non-zero terms in the
-        same order."""
-        return piecewise_eval(d_l[None, :, None].contiguous(), a_l[:, None].contiguous(),
-                              b_l[:, None].contiguous(), r_l[:, :, :, None].contiguous(),
-                              self.d_min, self.d_max)[0, :, 0]
+        [M, K, H, W, C] (one launch of kernel 5 on the card)."""
+        return piecewise_eval(D.contiguous(), a, b, r, self.d_min, self.d_max, offsets=offsets)
 
     def xyz(self, d: torch.Tensor) -> torch.Tensor:
-        return self._eval_multi(d[None], self.xyz_a, self.xyz_b, self.xyz_r)[0]
+        return self._eval(d[None], self.xyz_a, self.xyz_b, self.xyz_r)[0]
 
     def uv(self, d: torch.Tensor) -> torch.Tensor:
-        return self._eval_multi(d[None], self.uv_a, self.uv_b, self.uv_r)[0]
-
-    # xyz_shifted(dy, dx, d)[y, x] = P[clamp(y+dy), clamp(x+dx)](d[y, x]):
-    # the depth map is COUNTER-shifted, evaluated pixelwise on the unshifted
-    # planes and the result shifted back — exact except on the one
-    # clamp-collapsed border line, which a direct line evaluation fixes.
-
-    def _counter_shift(self, dy, dx, d):
-        return _shift2d(d[..., None], -dy, -dx)[..., 0]
-
-    def _shift_fix(self, q, dy, dx, d):
-        out = _shift2d(q, dy, dx)          # a fresh tensor (index copy)
-        h, w = q.shape[1], q.shape[2]
-        if dy != 0:
-            row = h - 1 if dy > 0 else 0
-            out[:, row] = self._eval_line(self.xyz_a[:, row], self.xyz_b[:, row],
-                                          self.xyz_r[:, :, :, row], d[:, row])
-        if dx != 0:
-            col = w - 1 if dx > 0 else 0
-            out[:, :, col] = self._eval_line(self.xyz_a[:, :, col], self.xyz_b[:, :, col],
-                                             self.xyz_r[:, :, :, :, col], d[:, :, col])
-        return out
+        return self._eval(d[None], self.uv_a, self.uv_b, self.uv_r)[0]
 
     def xyz_shifted(self, dy: int, dx: int, d: torch.Tensor) -> torch.Tensor:
-        q = self._eval_multi(self._counter_shift(dy, dx, d)[None],
-                             self.xyz_a, self.xyz_b, self.xyz_r)[0]
-        return self._shift_fix(q, dy, dx, d)
+        """xyz_shifted(dy, dx, d)[y, x] = P[clamp(y+dy), clamp(x+dx)](d[y, x]):
+        the table read at the edge-clamped shifted pixel."""
+        return self._eval(d[None], self.xyz_a, self.xyz_b, self.xyz_r, ((dy, dx),))[0]
 
     def xyz_neighborhood(self, dn, d_t, d_b, d_l, d_r):
-        """The pre_normal.fs 5-tap stencil (center, +y, -y, -x, +x) in ONE
-        kernel pass over the knot table (M = 5)."""
-        D = torch.stack([dn, self._counter_shift(1, 0, d_t),
-                         self._counter_shift(-1, 0, d_b),
-                         self._counter_shift(0, -1, d_l),
-                         self._counter_shift(0, 1, d_r)])
-        q = self._eval_multi(D, self.xyz_a, self.xyz_b, self.xyz_r)
-        return (q[0], self._shift_fix(q[1], 1, 0, d_t), self._shift_fix(q[2], -1, 0, d_b),
-                self._shift_fix(q[3], 0, -1, d_l), self._shift_fix(q[4], 0, 1, d_r))
+        """The pre_normal.fs 5-tap stencil (center, +y, -y, -x, +x) in one
+        kernel launch (M = 5, each map at its tap's offset)."""
+        q = self._eval(torch.stack([dn, d_t, d_b, d_l, d_r]), self.xyz_a, self.xyz_b,
+                       self.xyz_r, NEIGHBORHOOD)
+        return tuple(q.unbind(0))
 
 
 def _affine_fit(vol: torch.Tensor, tc: np.ndarray, tm: float, tv: float):

@@ -16,7 +16,7 @@ from rgbd_recon_torch.calibration import synthetic
 from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp
 from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse
 from rgbd_recon_torch.ops.tsdf_fast import occupied_bricks, occupied_list, pack_frames, pack_planes
-from rgbd_recon_torch.ops.warp import (piecewise_eval_cuda, piecewise_eval_plain,
+from rgbd_recon_torch.ops.warp import (NEIGHBORHOOD, piecewise_eval_cuda, piecewise_eval_plain,
                                        warp_screen_cuda, warp_screen_plain, warp_windows)
 from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
 from rgbd_recon_torch.utils.math import Bbox
@@ -90,6 +90,48 @@ def test_mark_bricks_cuda(dev, brick_size):
     assert int(got.sum()) > 0
 
 
+def _smooth_points(n_rows, width, rng):
+    """World points of a smooth depth image (a tilted, gently curved
+    surface seen row by row), so neighbouring pixels share a brick as a
+    sensor's rows do; 5% invalid."""
+    bbox = Bbox.default()
+    v, u = np.meshgrid(np.linspace(0, 1, n_rows), np.linspace(0, 1, width), indexing="ij")
+    p = np.stack([u, v, 0.3 + 0.4 * u + 0.05 * np.sin(6 * v)], -1)
+    world = (bbox.min + p * bbox.size).reshape(-1, 3)
+    return world, rng.random(world.shape[0]) > 0.05
+
+
+@pytest.mark.parametrize("case", ["smooth", "one_brick", "ragged"])
+def test_mark_bricks_cuda_contention(dev, case):
+    """Integer-exact where the warp aggregation and each block's 64-entry
+    bin cache in shared memory matter: points of a smooth depth image
+    (warps share bins), every point in one brick (the most contention on
+    one cache entry and one global count; its neighbour bin too), and n
+    not a multiple of the block size (a warp cut short)."""
+    rng = np.random.default_rng(8)
+    bbox = Bbox.default()
+    grid = bricks.make_brick_grid(bbox, 0.1, 0.01)
+    if case == "smooth":
+        world, valid = _smooth_points(424, 512, rng)
+    elif case == "one_brick":   # within 0.04 of one brick's center (half a brick: 0.05)
+        center = grid.bbox_min + (np.array(grid.res) // 2 + 0.5) * grid.brick_size
+        world = center + rng.uniform(-0.04, 0.04, (100_000, 3))
+        valid = np.ones(100_000, bool)
+    else:
+        world, valid = _smooth_points(97, 1001, rng)
+        world, valid = world[:97_003], valid[:97_003]
+    w = torch.from_numpy(world.astype(np.float32)).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    before = native.KERNELS["mark_bricks"].launches
+    got = bricks.mark_bricks(w, v, grid).to(torch.int64)
+    assert native.KERNELS["mark_bricks"].launches == before + 1
+    want = bricks.mark_bricks_plain(w, v, grid).to(torch.int64)
+    assert torch.equal(got, want)
+    assert int(got.sum()) >= int(valid.sum())
+    if case == "one_brick":
+        assert int((got > 0).sum()) <= 7 and int(got.max()) == 100_000
+
+
 def test_warp_screen_cuda(dev):
     """atol 1e-5: the same four fp32 taps in the same order. Nine channels
     of a source padded to 12, as the renderer passes them."""
@@ -149,22 +191,28 @@ def test_integrate_dense_cuda(dev):
     assert pocc > 1000 and abs(occ - pocc) <= max(100, 0.002 * pocc)
 
 
-def test_piecewise_eval_cuda(dev):
+@pytest.mark.parametrize("m,c,h,w", [(5, 3, 61, 97), (1, 3, 61, 97), (5, 2, 37, 45),
+                                     (1, 2, 424, 512)])
+def test_piecewise_eval_cuda(dev, m, c, h, w):
     """Bit for bit: the same float32 operations in the same order, every
-    one rounded on its own (no FMA contraction)."""
+    one rounded on its own (no FMA contraction), the division included.
+    M=5 with the normal stencil's five offsets, M=1 without; C = 2 and 3;
+    ragged H and W (a warp's row cut short, a block's rows past the edge);
+    depths outside [d_min, d_max]."""
     rng = np.random.default_rng(4)
-    m, k, h, w, c, s = 5, 2, 61, 97, 3, 16
-    d = torch.from_numpy(rng.uniform(-0.1, 1.1, (m, k, h, w)).astype(np.float32)).to(dev)
-    dc = torch.clamp(d, 0.02, 0.98).contiguous()
-    cc = ((dc - 0.02) / 0.96 * (s - 1)).contiguous()
+    k, s = 2, 16
+    d_min, d_max = 0.02, 0.98
+    D = torch.from_numpy(rng.uniform(-0.1, 1.1, (m, k, h, w)).astype(np.float32)).to(dev)
     a, b = (torch.from_numpy(rng.standard_normal((k, h, w, c)).astype(np.float32)).to(dev)
             for _ in range(2))
     r = torch.from_numpy(rng.standard_normal((k, c, s, h, w)).astype(np.float32) * 1e-2
                          ).to(dev).to(torch.bfloat16)
+    offs = NEIGHBORHOOD if m == 5 else None
     before = native.KERNELS["piecewise_eval"].launches
-    got = piecewise_eval_cuda(dc, cc, a, b, r)
+    got = piecewise_eval_cuda(D, a, b, r, d_min, d_max, offs)
     assert native.KERNELS["piecewise_eval"].launches == before + 1
-    assert torch.equal(got, piecewise_eval_plain(dc, cc, a, b, r))
+    assert got.shape == (m, k, h, w, c)
+    assert torch.equal(got, piecewise_eval_plain(D, a, b, r, d_min, d_max, offs))
 
 
 def _integrator_args(pipe, depth, color, mv, proj):

@@ -151,6 +151,39 @@ def test_piecewise_eval_matches_jax(ref):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
 
 
+def test_piecewise_eval_offsets_match_jax(ref):
+    """The port's offset evaluation, one map a tap of the normal stencil,
+    against piecewise_eval_pallas in interpret mode on tables shifted by
+    numpy edge padding (out[y, x] = P[clamp(y+dy), clamp(x+dx)](d[y, x])),
+    atol 2e-6 as the kernel form (tests/test_distortion.py:172); depths
+    cross both clamps. The four shifted tables ride the sensor axis of one
+    Pallas call."""
+    pw = from_jax(ref.pw)
+    taps = ((1, 0), (-1, 0), (0, -1), (0, 1))
+    a, b, r = (np.asarray(t) for t in (ref.pw.xyz_a, ref.pw.xyz_b, ref.pw.xyz_r))
+    k = a.shape[0]
+
+    def shift(x, dy, dx, ay):   # edge-clamped shift of axes (ay, ay + 1)
+        pad = [(0, 0)] * x.ndim
+        pad[ay], pad[ay + 1] = (max(-dy, 0), max(dy, 0)), (max(-dx, 0), max(dx, 0))
+        xp = np.pad(x, pad, mode="edge")
+        sl = [slice(None)] * x.ndim
+        sl[ay] = slice(max(-dy, 0) + dy, max(-dy, 0) + dy + x.shape[ay])
+        sl[ay + 1] = slice(max(-dx, 0) + dx, max(-dx, 0) + dx + x.shape[ay + 1])
+        return xp[tuple(sl)]
+
+    rng = np.random.default_rng(3)
+    D = rng.uniform(-0.05, 1.05, (len(taps), k, H, W)).astype(np.float32)
+    want = piecewise_eval_pallas(
+        jnp.asarray(D.reshape(1, len(taps) * k, H, W)),
+        *(jnp.asarray(np.concatenate([shift(t, dy, dx, ay) for dy, dx in taps]))
+          for t, ay in ((a, 1), (b, 1), (r, 3))),
+        ref.pw.d_min, ref.pw.d_max, interpret=True)
+    got = piecewise_eval(torch.from_numpy(D), pw.xyz_a, pw.xyz_b, pw.xyz_r, pw.d_min,
+                         pw.d_max, offsets=taps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(got.shape), atol=2e-6)
+
+
 def _pipeline(rig, **over):
     logs = []
     cfg = PipelineConfig(render_width=RW, render_height=RH, tsdf_res=(48, 48, 48),
