@@ -48,7 +48,22 @@ a result line):
 8. parity     a small frame (3 sensors at 256x212, 128^3, 320x240) through
               the CUDA path and through the plain path on the CPU: hit
               masks, colors and depths must agree at the render-parity
-              bounds the repo's tests use.
+              bounds the repo's tests use;
+9. app        the kinect_client app path: the port writes a compressed
+              reference-format scene into a temporary directory (4 Kinect-v2
+              sensors at 512x424, the two-sphere scene, fwd_res (128, 256,
+              128), inv_res 128^3, DXT1 color + u8 depth, 8 distinct noisy
+              frames recorded) and a .conf (recon mode 1, 1280x720,
+              voxel_size 0.01, brick_size 0.1, tsdf_limit 0.01); the wire
+              decode on the card must equal the host decode bit for bit on
+              every recorded frame; then ``rgbd_recon_torch.app.main`` replays
+              16 frames on the card (on-device wire decode, a frame and
+              texture dump on the last): the res it derives (208x224x208,
+              the block-major integrator), kernels 2, 3, 4 and 6 launched,
+              the app's wall and steady fps, the stage means of its
+              ``mean_*.csv``, its PNGs read back, and its first frame within
+              atol 1e-5 of a FramePipeline built from the in-memory rig and
+              fed the host-decoded frame.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -61,13 +76,18 @@ over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM data
 sheet), from this run's shapes, occupied counts and valid points.
 Phase 3 also prints the launch floor once: an empty kernel at
 mark_bricks' grid by CUDA-graph replay, alone and after a memset of its
-counts. The last three lines are a JSON object with one entry per kernel
+counts. The kernels JSON line holds the launches of phases 3-6; phase 9
+prints its own. The last three lines are a JSON object with one entry per kernel
 (one per timed call of kernel 5), the card's name and power limit, and
 the result object.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import glob
+import hashlib
+import io
 import json
 import os
 import subprocess
@@ -78,6 +98,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 NUM_FRAMES = 4
 PINHOLE_FRAMES = 2
+APP_FRAMES = 8             # recorded frames of the app's scene, all distinct
+APP_RUN = 16               # frames the app replays (two passes)
+APP_TIMED_EVERY = 4        # the app's step_timed cadence (RGBD_TIMED_EVERY)
+APP_CONF = ("recon_mode: 1\nscreenWidth: 1280\nscreenHeight: 720\nplay: true\n"
+            "voxel_size: 0.01\nbrick_size: 0.1\ntsdf_limit: 0.01\n"
+            # the navigator's 2.5 starts 15 m out; 0.35 puts the spheres on screen
+            "zoom: 0.35\n")
 DISTORT = 0.004            # bench.py BENCH_DISTORT: ~4 mm bake deformation
 PATH_KERNELS = ("bilateral_accum", "mark_bricks", "warp_screen")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
@@ -300,6 +327,180 @@ def _errs(a, b):
     return {"max": float(d.max()), "p995": float(torch.topk(d, k).values.min())}
 
 
+class _Tee(io.TextIOBase):
+    """stdout that also keeps what was written (the app's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.text.append(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _app_phase(rig, frames, card: str) -> None:
+    """Phase 9 (module docstring). ``rig``/``frames``: the pinhole bench rig
+    built in memory and its distinct noisy frames."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rgbd_recon_torch import app as app_mod
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration import synthetic
+    from rgbd_recon_torch.io.stream import FrameFormat, StreamReader, StreamWriter
+    from rgbd_recon_torch.ops.wire import make_wire_decoder
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.math import Bbox, perspective
+    from rgbd_recon_torch.utils.navigator import CameraNavigator
+    from rgbd_recon_torch.utils.png import read_png
+
+    dev = torch.device("cuda")
+    need = ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_affine")
+    with tempfile.TemporaryDirectory(prefix="rgbd_app_") as work:
+        t0 = time.perf_counter()
+        ks = synthetic.write_reference_scene(
+            work, num_sensors=4, bbox=Bbox.default(), fwd_res=(128, 256, 128),
+            inv_res=(128, 128, 128), width=512, height=424, compressed_rgb=1,
+            compressed_depth=True)
+        fmt = FrameFormat(512, 424, 512, 424, compressed_rgb=1, compressed_depth=True)
+        rec, out_dir = os.path.join(work, "recordings"), os.path.join(work, "frames")
+        os.makedirs(rec)
+        paths = [os.path.join(rec, f"sensor{k}.stream") for k in range(4)]
+        w = StreamWriter(paths, fmt)
+        for depth, color in frames[:APP_FRAMES]:
+            w.write(depth, color)
+        w.close()
+        conf = os.path.join(work, "run.conf")
+        with open(conf, "w") as f:
+            f.write(APP_CONF)
+        size = sum(os.path.getsize(os.path.join(work, n)) for n in os.listdir(work)
+                   if os.path.isfile(os.path.join(work, n)))
+        print(f"app: scene ({size / 1e6:.0f} MB) + {APP_FRAMES} recorded frames written in "
+              f"{time.perf_counter() - t0:.1f} s; {4 * fmt.frame_size} B a frame on the wire "
+              f"(DXT1 + u8 depth)")
+
+        # the wire decode on the card, bit for bit the host decode
+        reader = StreamReader(paths, fmt, looping=False)
+        raws = [reader.read_raw() for _ in range(APP_FRAMES)]
+        reader.close()
+        if len({hashlib.sha1(c.tobytes() + d.tobytes()).digest() for c, d in raws}) \
+                != APP_FRAMES:
+            raise RuntimeError("the recorded frames are not all distinct")
+        decode = make_wire_decoder(fmt)
+        host = []
+        for cp, dp in raws:
+            hd = np.stack([fmt.decode_depth(p) for p in dp])
+            hc = np.stack([fmt.decode_color(p) for p in cp])
+            gd, gc = decode(torch.from_numpy(cp).to(dev), torch.from_numpy(dp).to(dev))
+            if not (torch.equal(gd.cpu(), torch.from_numpy(hd))
+                    and torch.equal(gc.cpu(), torch.from_numpy(hc))):
+                raise RuntimeError("the wire decode on the card differs from the host decode")
+            host.append((hd, hc))
+        print(f"app: wire decode on the card bitwise equal to the host decode (io/dxt.py, "
+              f"FrameFormat.decode_depth) on all {APP_FRAMES} recorded frames")
+
+        # the app: main() as a user runs it; its first frame and instance kept
+        first = {}
+        frame_step = app_mod.KinectClientApp.frame_step
+
+        def keep_first(self):
+            rgba = frame_step(self)
+            if rgba is not None and not first:
+                first.update(app=self, rgba=rgba.clone())
+            return rgba
+
+        for k in native.KERNELS.values():
+            k.launches = 0
+        tee = _Tee(sys.stdout)
+        env = {"RGBD_TIMED_EVERY": str(APP_TIMED_EVERY), "RGBD_WIRE_DECODE": "auto"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        app_mod.KinectClientApp.frame_step = keep_first
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                rc = app_mod.main([ks, conf, "-recordings", rec, "-outdir", out_dir,
+                                   "-dump-every", str(APP_RUN), "-dump-textures",
+                                   "-frames", str(APP_RUN)])
+        finally:
+            app_mod.KinectClientApp.frame_step = frame_step
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in native.KERNELS.items()}
+        app = first.pop("app")
+        pipe = app.pipeline
+        res = pipe.tsdf_cfg.res
+        print(f"app: main() exit {rc} after {app._frames_done} frames, {wall:.1f} s (host "
+              f"clock, scene load and session bakes included); volume res {res} from "
+              f"voxel_size {pipe.cfg.voxel_size} ({'dense emit' if pipe._dense_emit else 'block-major'} "
+              f"integrator), occupied-brick capacity {pipe.max_bricks}")
+        if rc != 0 or app._frames_done != APP_RUN:
+            raise RuntimeError(f"the app ran {app._frames_done} frames (exit {rc})")
+        if res != (208, 224, 208) or pipe._dense_emit or pipe.affine is None:
+            raise RuntimeError(f"the app did not take the block-major integrator at {res}")
+        if app._wire_decode is None:
+            raise RuntimeError("the app decoded the compressed streams on the host")
+        print(f"app: kernel launches over the run: {counts}")
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"app: kernels never launched: {missing}")
+        print("app: kernels 2, 3, 4 and 6 launched: " + ", ".join(
+            f"{k} {counts[k]}" for k in ("warp_screen", "bilateral_accum", "mark_bricks",
+                                         "integrate_affine")))
+        log = "".join(tee.text).splitlines()
+        for key in ("app wall fps", "app steady fps"):
+            lines = [ln for ln in log if ln.startswith(key)]
+            if not lines:
+                raise RuntimeError(f"the app logged no '{key}' line")
+            print(f"app: {lines[-1]} ({card})")
+
+        # its CSVs and PNGs, read back
+        csv = {}
+        for kind in ("mean", "min", "max"):
+            found = glob.glob(os.path.join(work, f"{kind}_run,*.csv"))
+            if len(found) != 1:
+                raise RuntimeError(f"the app wrote {len(found)} {kind}_run,*.csv files")
+            with open(found[0]) as f:
+                header, values = f.read().splitlines()
+            names = [n.strip('"') for n in header.split(",")[1:]]
+            csv[kind] = dict(zip(names, (float(v) for v in values.split(",")[1:])))
+        print(f"app: {os.path.basename(found[0])[4:]} stage means (min, max) in ms over the "
+              f"{-(-APP_RUN // APP_TIMED_EVERY)} timed frames (CUDA events; draw: host "
+              f"clock to a synced frame; {card}): " + ", ".join(
+                  f"{n} {csv['mean'][n]:.3f} ({csv['min'][n]:.3f}, {csv['max'][n]:.3f})"
+                  for n in sorted(csv["mean"])))
+        png = read_png(os.path.join(out_dir, f"frame_{APP_RUN:05d}.png"))
+        textures = glob.glob(os.path.join(out_dir, f"frame_{APP_RUN:05d}_k*_*.png"))
+        if png.shape != (720, 1280, 4) or len(textures) != 4 * 5:
+            raise RuntimeError(f"the app's dump: {png.shape}, {len(textures)} textures")
+        print(f"app: dump frame_{APP_RUN:05d}.png {png.shape[1]}x{png.shape[0]}, coverage "
+              f"{float((png[..., 3] > 0).mean()):.4f}; {len(textures)} texture PNGs")
+        del app, pipe
+
+    # the app's first frame against the in-memory rig fed the host decode
+    mcfg = pl.PipelineConfig(render_width=1280, render_height=720, voxel_size=0.01,
+                             brick_size=0.1, tsdf_limit=0.01)
+    mpipe = pl.FramePipeline(rig, mcfg, device=dev)
+    nav = CameraNavigator(zoom=0.35)
+    nav.resize(1280, 720)
+    out = mpipe.step(*host[0], nav.modelview(), perspective(50.0, 1280 / 720, 0.1, 200.0))
+    err = float((out.color - first["rgba"]).abs().max())
+    cov = float(out.hit.float().mean())
+    print(f"app: first frame vs FramePipeline(in-memory rig, host-decoded frame): max abs "
+          f"err {err:.3e} (atol 1e-5, tests/test_app.py:187), coverage {cov:.4f}")
+    if not (err <= 1e-5 and cov > 0.0):
+        raise RuntimeError("the app's first frame differs from the in-memory pipeline's")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -464,7 +665,9 @@ def main() -> int:
 
     # -- 3. pinhole 256^3 ---------------------------------------------------
     t0 = time.perf_counter()
-    rig, bbox, frames = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED)
+    # APP_FRAMES distinct frames: phases 3-6 take the first 4, the app phase all
+    rig, bbox, frames = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED,
+                                      frames=APP_FRAMES)
     print(f"pinhole rig + frames: {time.perf_counter() - t0:.1f} s")
     n = 256
     cfg = _bench_config(bbox, n)
@@ -825,6 +1028,10 @@ def main() -> int:
           f"coverage {float(gh.mean()):.4f}")
     if not (hit_agree > 0.995 and psnr > 30.0 and dmed < 2e-3 and gh.mean() > 0.02):
         raise RuntimeError("the CUDA path disagrees with the plain path on the small frame")
+    del p, o, res
+
+    # -- 9. the app: compressed scene replay through rgbd_recon_torch.app ---
+    _app_phase(rig, frames, card)
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -13,6 +13,7 @@ Conventions:
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -64,6 +65,26 @@ def build_rig(
         bbox_min=np.asarray(bbox.min),
         bbox_max=np.asarray(bbox.max),
     )
+
+
+def load_rig(calib_files: Sequence[str], bbox: Bbox,
+             inv_path: str | None = None) -> RigCalibration:
+    """Load a rig from reference-format assets.
+
+    ``calib_files`` are the ``.yml`` paths listed in the ``.ks`` scene file;
+    the binary volumes live next to them with the ``.yml`` suffix replaced by
+    ``cv_xyz`` / ``cv_uv`` (CalibVolumes.cpp:34-39) and the baked inverses as
+    ``<name>cv_xyz_inv`` under ``inv_path`` (CalibVolumes.cpp:64-69).
+    """
+    xyz, uv, inv = [], [], []
+    for path in calib_files:
+        base = path[:-3]  # strip "yml" (CalibVolumes.cpp:36)
+        xyz.append(CalibrationVolume.read(base + "cv_xyz", 3))
+        uv.append(CalibrationVolume.read(base + "cv_uv", 2))
+        directory = inv_path if inv_path is not None else os.path.dirname(path)
+        name = os.path.basename(base + "cv_xyz") + "_inv"
+        inv.append(CalibrationVolume.read(os.path.join(directory, name), 4))
+    return build_rig(xyz, uv, inv, bbox)
 
 
 class DeviceRig(NamedTuple):

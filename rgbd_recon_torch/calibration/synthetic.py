@@ -2,7 +2,9 @@
 ``rgbd_recon_tpu/calibration/synthetic.py``).
 
 What ``synthetic_rig``, ``make_scene`` and ``render_frames`` reach, so the
-port can build the bench rigs and frames on a machine without JAX. The
+port can build the bench rigs and frames on a machine without JAX, and
+``write_reference_scene``, the reference-format scene bundle the app
+reads (``.ks`` + ``.yml`` + side files + cv volumes). The
 pinhole camera is the numpy original. The lens-distorted camera
 (``DistortedCamera``) runs on float64 torch tensors on an explicit
 ``device``: its undistort / unwarp fixed points over the bench's 4.2M-point
@@ -14,6 +16,7 @@ axis of the lookup volumes is normalized d_norm = (z - near) / (far - near).
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -580,3 +583,83 @@ def render_frames(cams: Sequence, scene: SphereScene, color_cams=None):
         [render_color(c, scene) for c in (color_cams or cams)]
     )
     return depth, color
+
+
+# --------------------------------------------------------------------------
+# reference-format scene fixtures
+
+
+def write_reference_scene(
+    directory: str,
+    num_sensors: int = 2,
+    bbox: Bbox | None = None,
+    fwd_res=(32, 48, 32),
+    inv_res=(32, 32, 32),
+    width: int = 128,
+    height: int = 104,
+    compressed_rgb: int = 0,
+    compressed_depth: bool = False,
+) -> str:
+    """Write a complete reference-format scene: ``.ks`` + RGBDemo ``.yml`` +
+    ``.ext``/``.bbx`` side files + binary cv volumes. Returns the .ks path.
+
+    Format fidelity: the yml mirrors OpenCV YAML token layout so the
+    token-stream parser quirks (comma chopping, ``[`` scanning —
+    KinectCalibrationFile.cpp:148-360) are exercised on realistic input.
+    """
+    bbox = bbox or Bbox.default()
+    cams = make_cameras(num_sensors, bbox, width=width, height=height)
+    os.makedirs(directory, exist_ok=True)
+
+    def mat_block(name, rows, cols, vals):
+        data = ", ".join(f"{v:.16e}" for v in vals)
+        return (
+            f"{name}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n"
+            f"   dt: d\n   data: [ {data} ]\n"
+        )
+
+    names = []
+    for i, cam in enumerate(cams):
+        base = os.path.join(directory, f"sensor{i}.")
+        names.append(f"sensor{i}.yml")
+        k_rgb = [cam.fx, 0.0, cam.cx, 0.0, cam.fy, cam.cy, 0.0, 0.0, 1.0]
+        with open(base + "yml", "w") as f:
+            f.write("%YAML:1.0\n")
+            f.write(mat_block("rgb_intrinsics", 3, 3, k_rgb))
+            f.write(mat_block("rgb_distortion", 1, 5, [0.0] * 5))
+            f.write(mat_block("depth_intrinsics", 3, 3, k_rgb))
+            f.write(mat_block("depth_distortion", 1, 5, [0.0] * 5))
+            f.write(mat_block("R", 3, 3, [1, 0, 0, 0, 1, 0, 0, 0, 1]))
+            f.write(mat_block("T", 3, 1, [0.0, 0.0, 0.0]))
+            f.write(mat_block("rgb_size", 1, 2, [cam.width, cam.height]))
+            f.write(mat_block("depth_size", 1, 2, [cam.width, cam.height]))
+            f.write(mat_block("near_far", 1, 2, [cam.near, cam.far]))
+            f.write(mat_block("compress_rgb", 1, 1, [compressed_rgb]))
+            f.write(mat_block("compress_depth", 1, 1, [int(compressed_depth)]))
+        # .ext: world T then R (world_to_cam inverse: sensor pose)
+        pose_r = cam.rot.T
+        with open(base + "ext", "w") as f:
+            f.write(" ".join(f"{v:.9f}" for v in cam.position) + "\n")
+            for row in pose_r:
+                f.write(" ".join(f"{v:.9f}" for v in row) + "\n")
+        # .bbx: positive box = scene bbox, negative box empty (reference
+        # default convention, KinectCalibrationFile.cpp:567-574)
+        with open(base + "bbx", "w") as f:
+            f.write(" ".join(f"{v:.4f}" for v in bbox.min) + "\n")
+            f.write(" ".join(f"{v:.4f}" for v in bbox.max) + "\n")
+            f.write("-100 -100 -100\n-100 -100 -100\n")
+        with open(base + "serial", "w") as f:
+            f.write(f"SYNTH{i:04d}\n")
+
+        cv_xyz, cv_uv = bake_forward_volumes(cam, fwd_res)
+        cv_inv = bake_inverse_volume(cam, bbox, inv_res)
+        cv_xyz.write(base + "cv_xyz")
+        cv_uv.write(base + "cv_uv")
+        cv_inv.write(base + "cv_xyz_inv")
+
+    ks_path = os.path.join(directory, "scene.ks")
+    with open(ks_path, "w") as f:
+        for n in names:
+            f.write(f"kinect {n}\n")
+        f.write("bbx " + " ".join(f"{v:.4f}" for v in np.concatenate([bbox.min, bbox.max])) + "\n")
+    return ks_path

@@ -57,21 +57,29 @@ def precompute_tables(rig, cfg, device: torch.device | str = "cuda") -> Integrat
 
 
 def tables_cached(rig, cfg, device: torch.device | str = "cuda",
-                  cache_dir: str | None = None) -> IntegrationTables:
+                  cache_dir: str | None = None, log=print) -> IntegrationTables:
     """``precompute_tables`` with an optional on-disk cache under
     ``cache_dir``, keyed by the content of cv_xyz_inv and the volume res
-    (the JAX package's key, so both share a cache)."""
+    (the JAX package's key, so both share a cache). A cache that cannot be
+    read or written costs a recompute and one ``log`` line, never the run
+    (the JAX behaviour)."""
     if cache_dir is None:
         return precompute_tables(rig, cfg, device)
     src = np.asarray(rig.cv_xyz_inv)
     key = hashlib.sha1(
         src.tobytes() + repr(("blocked-v2", tuple(cfg.res))).encode()).hexdigest()[:16]
     path = os.path.join(cache_dir, f"warp-{key}.npy")
-    if os.path.exists(path):
-        return IntegrationTables(torch.as_tensor(np.load(path), device=device))
+    try:
+        if os.path.exists(path):
+            return IntegrationTables(torch.as_tensor(np.load(path), device=device))
+    except (OSError, ValueError, EOFError) as e:
+        log(f"warp-table cache {path} unreadable ({type(e).__name__}: {e}); recomputing")
     tables = precompute_tables(rig, cfg, device)
-    os.makedirs(cache_dir, exist_ok=True)
-    np.save(path, tables.pos_blocked.cpu().numpy())
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.save(path, tables.pos_blocked.cpu().numpy())
+    except OSError as e:
+        log(f"warp-table cache {path} not written ({type(e).__name__}: {e})")
     return tables
 
 

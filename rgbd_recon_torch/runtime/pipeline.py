@@ -25,10 +25,28 @@ ignored: fused mode, the reference (non-brick) path (``fast_path`` or
 ``use_bricks`` off, volumes that are not 16-aligned) and
 ``use_pallas=False``. Session bakes run lazily at the first frame's sensor
 size, in torch, on the pipeline's ``device``.
+
+Small volumes take another integrator than the JAX pipeline. Where
+``min(res) // 16 < 8`` (e.g. the 48^3 a ``voxel_size`` of 0.05 derives),
+the JAX pipeline sets ``use_pallas`` off and integrates with the XLA
+table integrator ``tsdf_fast.integrate_sparse``
+(rgbd_recon_tpu/runtime/pipeline.py:444-449), which the port has not
+ported; the port takes the quadratic-warp kernels at every size. The two
+are different formulations of the same fusion: the port's frame is held
+against the JAX pipeline's at the render-parity bounds of
+tests/test_golden.py:65-69 (tests/test_torch_app.py).
+
+Session API (the app's control channel): ``retune`` re-derives only what
+a change invalidates, ``reload`` rebuilds the stages keeping every bake,
+``warmup`` runs each stage once, synchronised, with a log line each (the
+first call on the card builds the CUDA kernels). Stage timers live on the
+process-wide ``TimerDatabase.instance()``, as in the JAX package; a new
+pipeline starts its four stage timers empty.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -105,21 +123,33 @@ class FramePipeline:
     ``device``: where every per-frame tensor lives, the card unless the
     caller asks for another. On a CUDA device the four stages launch the
     hand-written kernels; with ``device="cpu"`` the kernels' plain PyTorch
-    versions run (tests). ``log``: optional callable(str)."""
+    versions run (tests). ``log``: optional callable(str).
+    ``table_cache_dir``: on-disk cache of the dense warp table
+    (``tsdf_fast.tables_cached``; the table tier only)."""
 
     def __init__(self, rig: RigCalibration, cfg: PipelineConfig = PipelineConfig(),
                  log: Callable[[str], None] | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 table_cache_dir: str | None = None):
         self.rig = rig
         self.bbox = rig.bbox
         self.device = torch.device(device)
         self._log = log or (lambda s: None)
-        self.timers = TimerDatabase()
+        self._table_cache_dir = table_cache_dir
+        self._variants_logged = False
+        self.timers = TimerDatabase.instance()
         for t in STAGE_TIMERS:
+            self.timers.timers.pop(t, None)
             self.timers.add_timer(t)
         self._configure(cfg)
 
-    def _configure(self, cfg: PipelineConfig) -> None:
+    def _configure(self, cfg: PipelineConfig, keep_warp_bake: bool = False) -> None:
+        """(Re)build everything derived from the static config. With
+        ``keep_warp_bake`` the voxel->sensor bake (affine coefficients or
+        warp table) and the session bakes of the sensor size (pixel warp,
+        device rig, windows) survive — valid only while the volume res and
+        the rig are unchanged; the depth-band cull bake, which reads the
+        TSDF limit, is re-derived at the next frame."""
         unsupported = {
             "fused": cfg.fused,
             "fast_path=False": not cfg.fast_path,
@@ -130,17 +160,18 @@ class FramePipeline:
         if bad:
             raise NotImplementedError(
                 f"not implemented in the torch port yet: {', '.join(bad)}")
-        self.cfg = cfg
         if cfg.tsdf_res is not None:
-            self.tsdf_cfg = tsdf_ops.TsdfConfig(cfg.tsdf_res, cfg.tsdf_limit)
+            tsdf_cfg = tsdf_ops.TsdfConfig(cfg.tsdf_res, cfg.tsdf_limit)
         else:
-            self.tsdf_cfg = tsdf_ops.TsdfConfig.from_voxel_size(
+            tsdf_cfg = tsdf_ops.TsdfConfig.from_voxel_size(
                 self.bbox, cfg.voxel_size, cfg.tsdf_limit, align=BRICK)
-        vx, vy, vz = self.tsdf_cfg.res
+        vx, vy, vz = tsdf_cfg.res
         if vx % BRICK or vy % BRICK or vz % BRICK:
             raise NotImplementedError(
-                f"volume res {self.tsdf_cfg.res}: the torch port needs a "
+                f"volume res {tsdf_cfg.res}: the torch port needs a "
                 "16-aligned res (the brick-sparse path)")
+        self.cfg = cfg
+        self.tsdf_cfg = tsdf_cfg
         self.brick_grid = brick_ops.make_brick_grid(
             self.bbox, cfg.brick_size, cfg.voxel_size)
         self.pre_cfg = pp.PreprocessConfig(
@@ -153,6 +184,9 @@ class FramePipeline:
             self.max_bricks = min(cfg.max_bricks, nb_total)
         else:
             self.max_bricks = min(nb_total, max(1024, nb_total // 4))
+        self._cull_bake = None
+        if keep_warp_bake:
+            return
 
         self.affine = self.tables = None
         if cfg.use_affine is not False:
@@ -167,14 +201,49 @@ class FramePipeline:
                           " falling back to the dense warp table")
         if self.affine is None:
             self._log(f"baking voxel->sensor warp tables at {self.tsdf_cfg.res} ...")
-            self.tables = tsdf_fast.tables_cached(self.rig, self.tsdf_cfg, self.device)
+            self.tables = tsdf_fast.tables_cached(self.rig, self.tsdf_cfg, self.device,
+                                                  self._table_cache_dir, self._log)
         # dense emit: whole 128-voxel x-rows and the quadratic warp
         self._dense_emit = self.affine is not None and vx % 128 == 0
         self._sensor_hw = None
         self._warp = self._drig = None
         self._win_off = None
-        self._cull_bake = None
         self._wy = self._wx = self._xstride = None
+
+    def retune(self, voxel_size: float | None = None,
+               brick_size: float | None = None,
+               tsdf_limit: float | None = None,
+               min_voxels_per_brick: int | None = None) -> None:
+        """Mid-run parameter change (≙ ReconIntegration::setVoxelSize /
+        setBrickSize / setTsdfLimit + divideBox, recon_integration.cpp:
+        340-406,462-472). Rebuilds only what the change invalidates:
+        tsdf_limit / min_voxels_per_brick keep the warp bakes and re-derive
+        the cull bake; brick_size rebuilds the brick grid; voxel_size
+        re-derives the volume res from the bbox at align=16 (any
+        ``tsdf_res`` override is dropped) and re-bakes the warp."""
+        cfg = self.cfg
+        updates = {}
+        if voxel_size is not None:
+            updates["voxel_size"] = float(voxel_size)
+            updates["tsdf_res"] = None
+        if brick_size is not None:
+            updates["brick_size"] = float(brick_size)
+        if tsdf_limit is not None:
+            updates["tsdf_limit"] = float(tsdf_limit)
+        if min_voxels_per_brick is not None:
+            updates["min_voxels_per_brick"] = int(min_voxels_per_brick)
+        if not updates:
+            return
+        new_cfg = cfg._replace(**updates)
+        res_changed = "voxel_size" in updates and (
+            new_cfg.tsdf_res != cfg.tsdf_res or new_cfg.voxel_size != cfg.voxel_size)
+        self._log(f"retune: {updates} (warp rebake: {res_changed})")
+        self._configure(new_cfg, keep_warp_bake=not res_changed)
+
+    def reload(self) -> None:
+        """≙ the 'S' key shader reload (kinect_client.cpp:776-783): rebuild
+        the config-derived state, keeping every bake."""
+        self._configure(self.cfg, keep_warp_bake=True)
 
     # -- session bakes (at the first frame's sensor size) -----------------
 
@@ -201,28 +270,28 @@ class FramePipeline:
         return warp
 
     def _session(self, h: int, w: int) -> None:
-        if self._sensor_hw == (h, w):
-            return
-        self._warp = self._bake_warp(h, w)
-        # the gather tier reads the cv volumes every frame
-        self._drig = device_rig(self.rig, self.device, volumes=self._warp is None)
-        if self.affine is None:
-            self._win_off = win_offsets_pallas(self.tables, h, w)
+        if self._sensor_hw != (h, w):
+            self._warp = self._bake_warp(h, w)
+            # the gather tier reads the cv volumes every frame
+            self._drig = device_rig(self.rig, self.device, volumes=self._warp is None)
+            if self.affine is None:
+                self._win_off = win_offsets_pallas(self.tables, h, w)
+            else:
+                self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
+                if self._dense_emit:
+                    self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(
+                        self.affine, w)
+                else:
+                    self._wx, self._xstride, clip_x = WX2, XSTRIDE2, 0.0
+                self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
+                          f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
+                self._win_off = tsdf_affine.win_offsets_affine(
+                    self.affine, h, w, self._wy, self._wx, self._xstride)
             self._sensor_hw = (h, w)
-            return
-        self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
-        if self._dense_emit:
-            self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(self.affine, w)
-        else:
-            self._wx, self._xstride, clip_x = WX2, XSTRIDE2, 0.0
-        self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
-                  f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
-        self._win_off = tsdf_affine.win_offsets_affine(
-            self.affine, h, w, self._wy, self._wx, self._xstride)
-        self._cull_bake = (tsdf_affine.bake_cull(self.affine, h, w,
-                                                 float(self.tsdf_cfg.limit))
-                           if self.cfg.brick_cull else None)
-        self._sensor_hw = (h, w)
+            self._cull_bake = None
+        if self._cull_bake is None and self.affine is not None and self.cfg.brick_cull:
+            self._cull_bake = tsdf_affine.bake_cull(self.affine, h, w,
+                                                    float(self.tsdf_cfg.limit))
 
     def _sweep_res(self) -> tuple[int, int]:
         if self.cfg.sweep_res is not None:
@@ -306,10 +375,44 @@ class FramePipeline:
         return self._step(depth_m, color, modelview, proj, timed=False)
 
     def step_timed(self, depth_m, color, modelview, proj) -> FrameOutput:
-        """``step`` with per-stage times recorded into ``self.timers`` under
-        the reference's stage names (CUDA events on a CUDA device; read with
+        """``step`` with per-stage times recorded into ``self.timers`` (the
+        process-wide ``TimerDatabase``) under the reference's stage names
+        (CUDA events on a CUDA device; read with
         ``self.timers.duration(name)``)."""
         return self._step(depth_m, color, modelview, proj, timed=True)
+
+    def warmup(self, depth_m, color, modelview, proj) -> None:
+        """Run the session bakes, then each stage once on these inputs,
+        synchronised, with a log line each (the JAX pipeline's per-stage
+        compile warm-up). On the card the first kernel launch builds the
+        CUDA library with nvcc (``native.build``), inside 1preprocess."""
+        def run(name, fn):
+            t0 = time.perf_counter()
+            self._log(f"warming {name} ...")
+            out = fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._log(f"  {name}: {time.perf_counter() - t0:.1f}s")
+            return out
+
+        depth, col, mv, pr, axis, flip = run(
+            "session bakes", lambda: self._inputs(depth_m, color, modelview, proj))
+        frames, mask16, _, _, cls = run("1preprocess", lambda: self._pre(depth, col))
+        vol, cvol = run("2integrate", lambda: self._integrate(frames, mask16, cls))
+        out = run(f"3recon (axis={axis} flip={flip})",
+                  lambda: self._render(vol, cvol, mask16, mv, pr, axis, flip))
+        if self.cfg.fill_holes:
+            run("holefill", lambda: self._fill(out.color, out.depth))
+
+    def warm_variants_async(self, depth_m, color, modelview, proj) -> None:
+        """No-op: the JAX pipeline compiles one render program per sweep
+        (axis, flip) and warms the other five in the background; eager
+        PyTorch runs every variant through the same kernels, so there is
+        nothing to compile. Logs that once."""
+        if not self._variants_logged:
+            self._variants_logged = True
+            self._log("render variants: nothing to warm (eager PyTorch has no "
+                      "per-axis programs)")
 
     def _step(self, depth_m, color, modelview, proj, timed: bool) -> FrameOutput:
         depth, col, mv, pr, axis, flip = self._inputs(depth_m, color, modelview, proj)

@@ -51,12 +51,14 @@ def test_scene_frames_bit_identical(kind):
 
 
 def test_port_runs_without_jax():
-    """With ``import jax`` made to fail, every module of the port imports
-    and one CPU FramePipeline.step runs on a tiny rig built by the port's
-    own calibration code — what chip_smoke.py needs on the card's machine."""
+    """With ``import jax`` (and ``import zmq``) made to fail, every module of
+    the port imports, one CPU FramePipeline.step runs on a tiny rig built by
+    the port's own calibration code, and the port's app replays a scene the
+    port wrote — what chip_smoke.py needs on the card's machine."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["zmq"] = None
         import importlib, pkgutil
         import numpy as np
         import rgbd_recon_torch
@@ -78,6 +80,32 @@ def test_port_runs_without_jax():
         pipe.check_capacity(out)
         assert out.color.shape == (48, 64, 4)
         assert bool(out.color.isfinite().all())
+        import contextlib, glob, io, os, tempfile
+        from rgbd_recon_torch import app
+        from rgbd_recon_torch.io.stream import FrameFormat, StreamWriter
+        work = tempfile.mkdtemp()
+        synthetic.write_reference_scene(work, num_sensors=2, bbox=bbox, width=96,
+                                        height=80, compressed_rgb=1, compressed_depth=True)
+        d, c = synthetic.render_frames(synthetic.make_cameras(2, bbox, width=96, height=80),
+                                       synthetic.SphereScene.default(bbox))
+        os.makedirs(work + "/rec")
+        w = StreamWriter([f"{work}/rec/sensor{i}.stream" for i in range(2)],
+                         FrameFormat(96, 80, 96, 80, compressed_rgb=1, compressed_depth=True))
+        w.write(d, c)
+        w.close()
+        with open(work + "/run.conf", "w") as f:
+            f.write("recon_mode: 1\\nscreenWidth: 64\\nscreenHeight: 48\\n"
+                    "voxel_size: 0.05\\nbrick_size: 0.2\\ntsdf_limit: 0.02\\n")
+        with contextlib.redirect_stdout(io.StringIO()):   # the app's log
+            rc = app.main([work + "/scene.ks", work + "/run.conf", "-recordings",
+                           work + "/rec", "-outdir", work + "/frames", "-dump-every", "2",
+                           "-frames", "2", "-device", "cpu"])
+        assert rc == 0 and glob.glob(work + "/frames/frame_00002.png")
+        assert glob.glob(work + "/mean_run,*.csv")
+        assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
+                       if v is not None)
+        import shutil
+        shutil.rmtree(work)
         print("OK", float(out.hit.float().mean()))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -88,15 +116,17 @@ def test_port_runs_without_jax():
 
 
 def test_entry_points_default_to_the_card():
-    """The pipeline and the five public session bakes run on the card
-    unless the caller passes ``device="cpu"`` (signatures only: no GPU
-    needed)."""
+    """The pipeline, the five public session bakes, the app and its device
+    feed run on the card unless the caller passes ``device="cpu"``
+    (signatures only: no GPU needed)."""
     import inspect
 
+    from rgbd_recon_torch.app import KinectClientApp
+    from rgbd_recon_torch.io.ingest import DeviceFeed
     from rgbd_recon_torch.ops import tsdf_affine, tsdf_fast, warp
     from rgbd_recon_torch.runtime.pipeline import FramePipeline
 
     for fn in (FramePipeline.__init__, warp.bake_pixel_warp, warp.bake_piecewise_warp,
                tsdf_affine.bake_affine, tsdf_fast.precompute_tables,
-               tsdf_fast.tables_cached):
+               tsdf_fast.tables_cached, KinectClientApp.__init__, DeviceFeed.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
