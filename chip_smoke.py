@@ -63,7 +63,25 @@ a result line):
               the app's wall and steady fps, the stage means of its
               ``mean_*.csv``, its PNGs read back, and its first frame within
               atol 1e-5 of a FramePipeline built from the in-memory rig and
-              fed the host-decoded frame.
+              fed the host-decoded frame;
+10. models    the reconstruction strategies (``models/``) on phase 9's scene:
+              counters to 0, then ``rgbd_recon_torch.app.main`` replays 12
+              frames with ``-serve`` on 127.0.0.1, 4 each in recon modes 0
+              (points), 2 (trigrid, ``-draw-bricks`` on) and 3 (mvt), the
+              switches posted to its control channel (each must be logged as
+              applied, none refused); one ReconIntegration frame at
+              voxel_size 0.01 / brick_size 0.1 and one ReconCalibs draw for
+              sensor 1 at 1280x720; counters read: kernels 2, 3, 4 and kernel
+              7's window mode (``integrate_sparse_window``, the XLA table
+              integrator) must have launched; every frame finite with
+              coverage > 0; the draw_<name> times and trigrid's scattered
+              entries printed; kernel 7's window mode held against its plain
+              form on the integration's call at the integrator bound and
+              timed as its own kernel entry; then on phase 8's small frame
+              (3 sensors at 256x212, 320x240) every strategy (points in shade
+              modes 0-3, trigrid, mvt, calibs, integration) on the card
+              against itself on the CPU at the render-parity bounds, with the
+              pixels that differ counted.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -76,10 +94,11 @@ over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM data
 sheet), from this run's shapes, occupied counts and valid points.
 Phase 3 also prints the launch floor once: an empty kernel at
 mark_bricks' grid by CUDA-graph replay, alone and after a memset of its
-counts. The kernels JSON line holds the launches of phases 3-6; phase 9
-prints its own. The last three lines are a JSON object with one entry per kernel
-(one per timed call of kernel 5), the card's name and power limit, and
-the result object.
+counts. The kernels JSON line holds the launches of phases 3-6 and, for
+kernel 7's window mode, of phase 10's path; phase 9 prints its own. The
+last three lines are a JSON object with one entry per kernel (one per
+timed call of kernel 5), the card's name and power limit, and the result
+object.
 """
 from __future__ import annotations
 
@@ -92,7 +111,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
@@ -342,11 +363,10 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _app_phase(rig, frames, card: str) -> None:
+def _app_phase(rig, frames, card: str, work: str) -> None:
     """Phase 9 (module docstring). ``rig``/``frames``: the pinhole bench rig
-    built in memory and its distinct noisy frames."""
-    import tempfile
-
+    built in memory and its distinct noisy frames; ``work``: the directory
+    the scene is written into (phase 10 replays it too)."""
     import numpy as np
     import torch
     from rgbd_recon_torch import app as app_mod
@@ -361,130 +381,129 @@ def _app_phase(rig, frames, card: str) -> None:
 
     dev = torch.device("cuda")
     need = ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_affine")
-    with tempfile.TemporaryDirectory(prefix="rgbd_app_") as work:
-        t0 = time.perf_counter()
-        ks = synthetic.write_reference_scene(
-            work, num_sensors=4, bbox=Bbox.default(), fwd_res=(128, 256, 128),
-            inv_res=(128, 128, 128), width=512, height=424, compressed_rgb=1,
-            compressed_depth=True)
-        fmt = FrameFormat(512, 424, 512, 424, compressed_rgb=1, compressed_depth=True)
-        rec, out_dir = os.path.join(work, "recordings"), os.path.join(work, "frames")
-        os.makedirs(rec)
-        paths = [os.path.join(rec, f"sensor{k}.stream") for k in range(4)]
-        w = StreamWriter(paths, fmt)
-        for depth, color in frames[:APP_FRAMES]:
-            w.write(depth, color)
-        w.close()
-        conf = os.path.join(work, "run.conf")
-        with open(conf, "w") as f:
-            f.write(APP_CONF)
-        size = sum(os.path.getsize(os.path.join(work, n)) for n in os.listdir(work)
-                   if os.path.isfile(os.path.join(work, n)))
-        print(f"app: scene ({size / 1e6:.0f} MB) + {APP_FRAMES} recorded frames written in "
-              f"{time.perf_counter() - t0:.1f} s; {4 * fmt.frame_size} B a frame on the wire "
-              f"(DXT1 + u8 depth)")
+    t0 = time.perf_counter()
+    ks = synthetic.write_reference_scene(
+        work, num_sensors=4, bbox=Bbox.default(), fwd_res=(128, 256, 128),
+        inv_res=(128, 128, 128), width=512, height=424, compressed_rgb=1,
+        compressed_depth=True)
+    fmt = FrameFormat(512, 424, 512, 424, compressed_rgb=1, compressed_depth=True)
+    rec, out_dir = os.path.join(work, "recordings"), os.path.join(work, "frames")
+    os.makedirs(rec)
+    paths = [os.path.join(rec, f"sensor{k}.stream") for k in range(4)]
+    w = StreamWriter(paths, fmt)
+    for depth, color in frames[:APP_FRAMES]:
+        w.write(depth, color)
+    w.close()
+    conf = os.path.join(work, "run.conf")
+    with open(conf, "w") as f:
+        f.write(APP_CONF)
+    size = sum(os.path.getsize(os.path.join(work, n)) for n in os.listdir(work)
+               if os.path.isfile(os.path.join(work, n)))
+    print(f"app: scene ({size / 1e6:.0f} MB) + {APP_FRAMES} recorded frames written in "
+          f"{time.perf_counter() - t0:.1f} s; {4 * fmt.frame_size} B a frame on the wire "
+          f"(DXT1 + u8 depth)")
 
-        # the wire decode on the card, bit for bit the host decode
-        reader = StreamReader(paths, fmt, looping=False)
-        raws = [reader.read_raw() for _ in range(APP_FRAMES)]
-        reader.close()
-        if len({hashlib.sha1(c.tobytes() + d.tobytes()).digest() for c, d in raws}) \
-                != APP_FRAMES:
-            raise RuntimeError("the recorded frames are not all distinct")
-        decode = make_wire_decoder(fmt)
-        host = []
-        for cp, dp in raws:
-            hd = np.stack([fmt.decode_depth(p) for p in dp])
-            hc = np.stack([fmt.decode_color(p) for p in cp])
-            gd, gc = decode(torch.from_numpy(cp).to(dev), torch.from_numpy(dp).to(dev))
-            if not (torch.equal(gd.cpu(), torch.from_numpy(hd))
-                    and torch.equal(gc.cpu(), torch.from_numpy(hc))):
-                raise RuntimeError("the wire decode on the card differs from the host decode")
-            host.append((hd, hc))
-        print(f"app: wire decode on the card bitwise equal to the host decode (io/dxt.py, "
-              f"FrameFormat.decode_depth) on all {APP_FRAMES} recorded frames")
+    # the wire decode on the card, bit for bit the host decode
+    reader = StreamReader(paths, fmt, looping=False)
+    raws = [reader.read_raw() for _ in range(APP_FRAMES)]
+    reader.close()
+    if len({hashlib.sha1(c.tobytes() + d.tobytes()).digest() for c, d in raws}) \
+            != APP_FRAMES:
+        raise RuntimeError("the recorded frames are not all distinct")
+    decode = make_wire_decoder(fmt)
+    host = []
+    for cp, dp in raws:
+        hd = np.stack([fmt.decode_depth(p) for p in dp])
+        hc = np.stack([fmt.decode_color(p) for p in cp])
+        gd, gc = decode(torch.from_numpy(cp).to(dev), torch.from_numpy(dp).to(dev))
+        if not (torch.equal(gd.cpu(), torch.from_numpy(hd))
+                and torch.equal(gc.cpu(), torch.from_numpy(hc))):
+            raise RuntimeError("the wire decode on the card differs from the host decode")
+        host.append((hd, hc))
+    print(f"app: wire decode on the card bitwise equal to the host decode (io/dxt.py, "
+          f"FrameFormat.decode_depth) on all {APP_FRAMES} recorded frames")
 
-        # the app: main() as a user runs it; its first frame and instance kept
-        first = {}
-        frame_step = app_mod.KinectClientApp.frame_step
+    # the app: main() as a user runs it; its first frame and instance kept
+    first = {}
+    frame_step = app_mod.KinectClientApp.frame_step
 
-        def keep_first(self):
-            rgba = frame_step(self)
-            if rgba is not None and not first:
-                first.update(app=self, rgba=rgba.clone())
-            return rgba
+    def keep_first(self):
+        rgba = frame_step(self)
+        if rgba is not None and not first:
+            first.update(app=self, rgba=rgba.clone())
+        return rgba
 
-        for k in native.KERNELS.values():
-            k.launches = 0
-        tee = _Tee(sys.stdout)
-        env = {"RGBD_TIMED_EVERY": str(APP_TIMED_EVERY), "RGBD_WIRE_DECODE": "auto"}
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        app_mod.KinectClientApp.frame_step = keep_first
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(tee):
-                rc = app_mod.main([ks, conf, "-recordings", rec, "-outdir", out_dir,
-                                   "-dump-every", str(APP_RUN), "-dump-textures",
-                                   "-frames", str(APP_RUN)])
-        finally:
-            app_mod.KinectClientApp.frame_step = frame_step
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k)
-                else:
-                    os.environ[k] = v
-        wall = time.perf_counter() - t0
-        counts = {name: k.launches for name, k in native.KERNELS.items()}
-        app = first.pop("app")
-        pipe = app.pipeline
-        res = pipe.tsdf_cfg.res
-        print(f"app: main() exit {rc} after {app._frames_done} frames, {wall:.1f} s (host "
-              f"clock, scene load and session bakes included); volume res {res} from "
-              f"voxel_size {pipe.cfg.voxel_size} ({'dense emit' if pipe._dense_emit else 'block-major'} "
-              f"integrator), occupied-brick capacity {pipe.max_bricks}")
-        if rc != 0 or app._frames_done != APP_RUN:
-            raise RuntimeError(f"the app ran {app._frames_done} frames (exit {rc})")
-        if res != (208, 224, 208) or pipe._dense_emit or pipe.affine is None:
-            raise RuntimeError(f"the app did not take the block-major integrator at {res}")
-        if app._wire_decode is None:
-            raise RuntimeError("the app decoded the compressed streams on the host")
-        print(f"app: kernel launches over the run: {counts}")
-        missing = [k for k in need if counts[k] == 0]
-        if missing:
-            raise RuntimeError(f"app: kernels never launched: {missing}")
-        print("app: kernels 2, 3, 4 and 6 launched: " + ", ".join(
-            f"{k} {counts[k]}" for k in ("warp_screen", "bilateral_accum", "mark_bricks",
-                                         "integrate_affine")))
-        log = "".join(tee.text).splitlines()
-        for key in ("app wall fps", "app steady fps"):
-            lines = [ln for ln in log if ln.startswith(key)]
-            if not lines:
-                raise RuntimeError(f"the app logged no '{key}' line")
-            print(f"app: {lines[-1]} ({card})")
+    for k in native.KERNELS.values():
+        k.launches = 0
+    tee = _Tee(sys.stdout)
+    env = {"RGBD_TIMED_EVERY": str(APP_TIMED_EVERY), "RGBD_WIRE_DECODE": "auto"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    app_mod.KinectClientApp.frame_step = keep_first
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = app_mod.main([ks, conf, "-recordings", rec, "-outdir", out_dir,
+                               "-dump-every", str(APP_RUN), "-dump-textures",
+                               "-frames", str(APP_RUN)])
+    finally:
+        app_mod.KinectClientApp.frame_step = frame_step
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in native.KERNELS.items()}
+    app = first.pop("app")
+    pipe = app.pipeline
+    res = pipe.tsdf_cfg.res
+    print(f"app: main() exit {rc} after {app._frames_done} frames, {wall:.1f} s (host "
+          f"clock, scene load and session bakes included); volume res {res} from "
+          f"voxel_size {pipe.cfg.voxel_size} ({'dense emit' if pipe._dense_emit else 'block-major'} "
+          f"integrator), occupied-brick capacity {pipe.max_bricks}")
+    if rc != 0 or app._frames_done != APP_RUN:
+        raise RuntimeError(f"the app ran {app._frames_done} frames (exit {rc})")
+    if res != (208, 224, 208) or pipe._dense_emit or pipe.affine is None:
+        raise RuntimeError(f"the app did not take the block-major integrator at {res}")
+    if app._wire_decode is None:
+        raise RuntimeError("the app decoded the compressed streams on the host")
+    print(f"app: kernel launches over the run: {counts}")
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"app: kernels never launched: {missing}")
+    print("app: kernels 2, 3, 4 and 6 launched: " + ", ".join(
+        f"{k} {counts[k]}" for k in ("warp_screen", "bilateral_accum", "mark_bricks",
+                                     "integrate_affine")))
+    log = "".join(tee.text).splitlines()
+    for key in ("app wall fps", "app steady fps"):
+        lines = [ln for ln in log if ln.startswith(key)]
+        if not lines:
+            raise RuntimeError(f"the app logged no '{key}' line")
+        print(f"app: {lines[-1]} ({card})")
 
-        # its CSVs and PNGs, read back
-        csv = {}
-        for kind in ("mean", "min", "max"):
-            found = glob.glob(os.path.join(work, f"{kind}_run,*.csv"))
-            if len(found) != 1:
-                raise RuntimeError(f"the app wrote {len(found)} {kind}_run,*.csv files")
-            with open(found[0]) as f:
-                header, values = f.read().splitlines()
-            names = [n.strip('"') for n in header.split(",")[1:]]
-            csv[kind] = dict(zip(names, (float(v) for v in values.split(",")[1:])))
-        print(f"app: {os.path.basename(found[0])[4:]} stage means (min, max) in ms over the "
-              f"{-(-APP_RUN // APP_TIMED_EVERY)} timed frames (CUDA events; draw: host "
-              f"clock to a synced frame; {card}): " + ", ".join(
-                  f"{n} {csv['mean'][n]:.3f} ({csv['min'][n]:.3f}, {csv['max'][n]:.3f})"
-                  for n in sorted(csv["mean"])))
-        png = read_png(os.path.join(out_dir, f"frame_{APP_RUN:05d}.png"))
-        textures = glob.glob(os.path.join(out_dir, f"frame_{APP_RUN:05d}_k*_*.png"))
-        if png.shape != (720, 1280, 4) or len(textures) != 4 * 5:
-            raise RuntimeError(f"the app's dump: {png.shape}, {len(textures)} textures")
-        print(f"app: dump frame_{APP_RUN:05d}.png {png.shape[1]}x{png.shape[0]}, coverage "
-              f"{float((png[..., 3] > 0).mean()):.4f}; {len(textures)} texture PNGs")
-        del app, pipe
+    # its CSVs and PNGs, read back
+    csv = {}
+    for kind in ("mean", "min", "max"):
+        found = glob.glob(os.path.join(work, f"{kind}_run,*.csv"))
+        if len(found) != 1:
+            raise RuntimeError(f"the app wrote {len(found)} {kind}_run,*.csv files")
+        with open(found[0]) as f:
+            header, values = f.read().splitlines()
+        names = [n.strip('"') for n in header.split(",")[1:]]
+        csv[kind] = dict(zip(names, (float(v) for v in values.split(",")[1:])))
+    print(f"app: {os.path.basename(found[0])[4:]} stage means (min, max) in ms over the "
+          f"{-(-APP_RUN // APP_TIMED_EVERY)} timed frames (CUDA events; draw: host "
+          f"clock to a synced frame; {card}): " + ", ".join(
+              f"{n} {csv['mean'][n]:.3f} ({csv['min'][n]:.3f}, {csv['max'][n]:.3f})"
+              for n in sorted(csv["mean"])))
+    png = read_png(os.path.join(out_dir, f"frame_{APP_RUN:05d}.png"))
+    textures = glob.glob(os.path.join(out_dir, f"frame_{APP_RUN:05d}_k*_*.png"))
+    if png.shape != (720, 1280, 4) or len(textures) != 4 * 5:
+        raise RuntimeError(f"the app's dump: {png.shape}, {len(textures)} textures")
+    print(f"app: dump frame_{APP_RUN:05d}.png {png.shape[1]}x{png.shape[0]}, coverage "
+          f"{float((png[..., 3] > 0).mean()):.4f}; {len(textures)} texture PNGs")
+    del app, pipe
 
     # the app's first frame against the in-memory rig fed the host decode
     mcfg = pl.PipelineConfig(render_width=1280, render_height=720, voxel_size=0.01,
@@ -499,6 +518,195 @@ def _app_phase(rig, frames, card: str) -> None:
           f"err {err:.3e} (atol 1e-5, tests/test_app.py:187), coverage {cov:.4f}")
     if not (err <= 1e-5 and cov > 0.0):
         raise RuntimeError("the app's first frame differs from the in-memory pipeline's")
+
+
+MODELS_CONF = APP_CONF.replace("recon_mode: 1", "recon_mode: 0")
+MODELS_RUN = ((0, False), (2, True), (3, False))   # (recon mode, draw bricks), 4 frames each
+MODELS_FRAMES = 4
+
+
+def _models_phase(rig, frames, card: str, work: str, check_integrator, integrator_work,
+                  launches: dict) -> None:
+    """Phase 10 (module docstring). ``work`` holds phase 9's scene;
+    ``check_integrator`` / ``integrator_work``: main()'s helpers (kernel
+    entry with its bound); ``launches``: main()'s launch record."""
+    import json as _json
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from rgbd_recon_torch import app as app_mod
+    from rgbd_recon_torch import models, native
+    from rgbd_recon_torch.ops import tsdf_sparse
+    from rgbd_recon_torch.ops.raymarch import RenderCamera
+    from rgbd_recon_torch.ops.tsdf_fast import pack_frames
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.math import perspective
+    from rgbd_recon_torch.utils.metrics import render_parity
+    from rgbd_recon_torch.utils.navigator import CameraNavigator
+    from rgbd_recon_torch.utils.timers import TimerDatabase
+
+    dev = torch.device("cuda")
+    ks, rec = os.path.join(work, "scene.ks"), os.path.join(work, "recordings")
+    conf = os.path.join(work, "models.conf")
+    with open(conf, "w") as f:
+        f.write(MODELS_CONF)
+
+    # the path: counters to 0, the app in modes 0, 2, 3 (switched over the
+    # control channel, -draw-bricks in mode 2), then ReconIntegration and
+    # ReconCalibs on the app's last frame; counters read
+    for k in native.KERNELS.values():
+        k.launches = 0
+    TimerDatabase.instance().reset()
+    shots, kept = {}, {}
+    frame_step = app_mod.KinectClientApp.frame_step
+
+    def step(self):
+        n = self._frames_done
+        if n and n % MODELS_FRAMES == 0 and n // MODELS_FRAMES < len(MODELS_RUN):
+            mode, bricks = MODELS_RUN[n // MODELS_FRAMES]
+            body = _json.dumps({"recon_mode": mode, "draw_bricks": bricks}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{self.viewer.port}/control",
+                                         data=body, method="POST")
+            if not _json.load(urllib.request.urlopen(req, timeout=30))["ok"]:
+                raise RuntimeError(f"the control channel refused {body}")
+        rgba = frame_step(self)        # applies the command, then draws
+        mode = self.cfg.recon_mode
+        if rgba is not None:
+            kept.update(app=self)
+            shots.setdefault(mode, []).append(
+                rgba.clone() if isinstance(rgba, torch.Tensor) else torch.from_numpy(rgba))
+        return rgba
+
+    tee = _Tee(sys.stdout)
+    app_mod.KinectClientApp.frame_step = step
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = app_mod.main([ks, conf, "-recordings", rec, "-outdir",
+                               os.path.join(work, "frames_models"), "-serve", "0",
+                               "-frames", str(MODELS_FRAMES * len(MODELS_RUN))])
+    finally:
+        app_mod.KinectClientApp.frame_step = frame_step
+    app = kept.pop("app")
+    print(f"models: main() exit {rc} after {app._frames_done} frames in modes "
+          f"{[m for m, _ in MODELS_RUN]} ({MODELS_FRAMES} each), {time.perf_counter() - t0:.1f} s "
+          f"(host clock, scene load and session bakes included)")
+    log = "".join(tee.text).splitlines()
+    switches = [ln for ln in log if "control: recon_mode ->" in ln]
+    refused = [ln for ln in log if "refused" in ln]
+    print(f"models: control channel: {switches}")
+    if rc != 0 or refused or len(switches) != len(MODELS_RUN) - 1:
+        raise RuntimeError(f"the mode switches were not applied: {switches} {refused}")
+    for mode, bricks in MODELS_RUN:
+        imgs = shots.get(mode, [])
+        last = imgs[-1] if imgs else torch.zeros(1, 1, 4)
+        cov = float((last[..., 3] > 0).float().mean())
+        ok = (len(imgs) == MODELS_FRAMES and tuple(last.shape) == (720, 1280, 4)
+              and all(bool(torch.isfinite(i).all()) for i in imgs) and cov > 0)
+        print(f"models: mode {mode} ({app_mod.MODE_NAMES[mode]}{', -draw-bricks' if bricks else ''}): "
+              f"{len(imgs)} frames, coverage {cov:.4f}{'' if ok else ' FAIL'}")
+        if not ok:
+            raise RuntimeError(f"recon mode {mode}: frames not finite or empty")
+
+    # ReconIntegration at voxel_size 0.01 / brick_size 0.1, ReconCalibs for
+    # sensor 1, on the last recorded frame
+    ctx = app.models[0].ctx
+    nav = CameraNavigator(zoom=0.35)
+    nav.resize(1280, 720)
+    cam = RenderCamera(torch.from_numpy(nav.modelview()).to(dev),
+                       torch.from_numpy(perspective(50.0, 1280 / 720, 0.1, 200.0)).to(dev),
+                       1280, 720)
+    pframes = app.pipeline.preprocess(*frames[MODELS_FRAMES - 1])
+    integ = models.ReconIntegration(ctx, voxel_size=0.01, brick_size=0.1)
+    rec7 = Recorder(tsdf_sparse, "integrate_sparse_cuda")
+    try:
+        icolor = integ.draw_f(pframes, cam)
+    finally:
+        rec7.restore()
+    calibs = models.ReconCalibs(ctx)
+    calibs.set_active_kinect(1)
+    ccolor = calibs.draw_f(pframes, cam)
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in native.KERNELS.items()}
+    print(f"models: launches over the path (app modes 0/2/3, integration, calibs): {counts}")
+    need = ("warp_screen", "bilateral_accum", "mark_bricks", "integrate_sparse_window")
+    if any(counts[k] == 0 for k in need):
+        raise RuntimeError(f"models: kernels never launched: "
+                           f"{[k for k in need if counts[k] == 0]}")
+    launches["integrate_sparse[xla window]"] = counts["integrate_sparse_window"]
+    for name, img in (("integration", icolor), ("calibs", ccolor)):
+        cov = float((img[..., 3] > 0).float().mean())
+        print(f"models: {name} 1280x720 coverage {cov:.4f}")
+        if not (bool(torch.isfinite(img).all()) and cov > 0):
+            raise RuntimeError(f"models: {name} frame not finite or empty")
+    print(f"models: integration res {integ.volume_res}, occupied ratio "
+          f"{integ.occupied_ratio():.4f}")
+    db = TimerDatabase.instance()
+    print("models: draw times, host clock to the synced image, mean (min) over the frames "
+          f"({card}): " + ", ".join(
+              f"{n} {db.timers[n].mean * 1e3:.3f} ({db.timers[n].vmin * 1e3:.3f}) ms x"
+              f"{db.timers[n].count}" for n in sorted(db.timers) if n.startswith("draw_")
+              and db.timers[n].count))
+    trig = app.models[2]
+    n_pts = pframes.depth.shape[0] * pframes.depth.shape[1] * pframes.depth.shape[2]
+    print(f"models: trigrid footprint cap {trig.footprint_cap} px -> "
+          f"{trig.footprint_cap ** 2} offsets x {n_pts} points = "
+          f"{trig.footprint_cap ** 2 * n_pts / 1e6:.1f} M entries scattered a pass; points "
+          f"9 x {n_pts} = {9 * n_pts / 1e6:.1f} M")
+
+    # kernel 7's window mode against its plain form on the integration's call
+    (packed, pos, idx, count, woff, res, limit, window), _ = rec7.calls[0]
+    n_occ = int(count)
+    print(f"  integrate_sparse[xla window]: {n_occ} occupied bricks at {res}, window {window}")
+    check_integrator("integrate_sparse[xla window]", "rgbd_recon_torch/csrc/integrate_sparse.cu",
+                     "rgbd_recon_tpu/ops/tsdf_fast.py:233",
+                     lambda: tsdf_sparse.integrate_sparse_cuda(*rec7.calls[0][0]),
+                     lambda: tsdf_sparse.integrate_sparse_plain(*rec7.calls[0][0]), limit, 5,
+                     *integrator_work(packed, n_occ, 4 + n_occ * 4, res, 20, 4096 * 12 + 8,
+                                      FUSE_OPS - WARP_OPS))
+    del app, integ, calibs, rec7, pframes, shots
+
+    # parity: each strategy on the card against itself on the CPU, on
+    # phase 8's small frame (3 sensors at 256x212, 320x240)
+    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                         frames=1)
+    voxel = float(np.max(sbbox.size) / 64)
+    cfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(64, 64, 64),
+                            voxel_size=voxel, brick_size=0.2)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = pl.FramePipeline(srig, cfg, device=d)
+        smv, sproj = p.default_camera()
+        fr = p.preprocess(*sframes[0])
+        sctx = models.ReconContext(rig=srig, bbox=sbbox, width=320, height=240, device=d)
+        scam = RenderCamera(torch.from_numpy(smv).to(d), torch.from_numpy(sproj).to(d), 320, 240)
+        strategies = {f"points[{m}]": models.ReconPoints(sctx, m) for m in range(4)}
+        strategies.update(trigrid=models.ReconTrigrid(sctx), mvt=models.ReconMVT(sctx),
+                          calibs=models.ReconCalibs(sctx),
+                          integration=models.ReconIntegration(sctx, voxel_size=voxel,
+                                                              brick_size=0.2))
+        for name, m in strategies.items():
+            out.setdefault(name, []).append(
+                [x.float().cpu().numpy() for x in m.draw_with_depth(fr, scam)])
+    for name, ((gc, gd), (cc, cd)) in out.items():
+        def hit(color, depth):
+            return depth < 1.0 if name == "integration" else color[..., 3] > 0
+
+        g = types.SimpleNamespace(color=gc, depth=gd, hit=hit(gc, gd))
+        h = types.SimpleNamespace(color=cc, depth=cd, hit=hit(cc, cd))
+        st = render_parity(h, g)
+        differ = int(((g.hit != h.hit) | (np.abs(gc - cc).max(-1) > 1e-3)).sum())
+        ok = (st["hit_agreement"] > 0.995 and st["psnr_rgb"] > 30.0 and st["ssim_rgb"] > 0.95
+              and st["depth_err_med"] < 2e-3 and st["depth_err_p99"] < 2e-2
+              and st["hit_frac"] > 0.02)
+        print(f"models parity {name} cuda vs cpu: hit agreement {st['hit_agreement']:.5f}, "
+              f"psnr {st['psnr_rgb']:.2f} dB, ssim {st['ssim_rgb']:.5f}, depth err median "
+              f"{st['depth_err_med']:.2e} p99 {st['depth_err_p99']:.2e}, coverage "
+              f"{st['hit_frac']:.4f}, pixels differing {differ} of {gc.shape[0] * gc.shape[1]}"
+              f"{'' if ok else ' FAIL'}")
+        if not ok:
+            raise RuntimeError(f"models: {name} on the card disagrees with the CPU")
 
 
 def main() -> int:
@@ -1031,7 +1239,10 @@ def main() -> int:
     del p, o, res
 
     # -- 9. the app: compressed scene replay through rgbd_recon_torch.app ---
-    _app_phase(rig, frames, card)
+    # -- 10. the reconstruction strategies (models/) on the same scene -----
+    with tempfile.TemporaryDirectory(prefix="rgbd_app_") as work:
+        _app_phase(rig, frames, card, work)
+        _models_phase(rig, frames, card, work, check_integrator, integrator_work, launches)
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -15,6 +15,9 @@ constexpr int B3 = BRICK * BRICK * BRICK;
 // (tsdf_pallas.py SIL_PL), the constant rounded from double as in the
 // reference
 constexpr float SIL_GATE = static_cast<float>(1.0 - 0.998);
+// the XLA table integrator's gate (tsdf_fast.py SIL_FULL): the silhouette
+// itself sampled LINEAR, "fully inside" below 0.9999
+constexpr float SIL_FULL = 0.9999f;
 
 struct Fuse {
   float wt, tw, tc0, tc1, tc2, tcw, td0, td1, td2, tdw;
@@ -28,11 +31,14 @@ __device__ __forceinline__ Fuse fuse_init(float limit) {
 // instead of IEEE division, whose multi-instruction sequence and branch
 // were the largest single cost of the update; the integrator bound between
 // formulations (tests/test_tsdf_affine.py:109-116) is six orders of
-// magnitude wider than the difference.
+// magnitude wider than the difference. ``sil``: (1 - silhouette) under the
+// SIL_PL gate, or with kSilDirect the silhouette itself under SIL_FULL.
+template <bool kSilDirect = false>
 __device__ __forceinline__ void fuse(Fuse& s, float d_vox, float depth, float qual,
-                                     float sflip, float r, float g, float b, float limit) {
+                                     float sil, float r, float g, float b, float limit) {
   const float sdist = d_vox - depth;
-  const bool skip = (sflip > SIL_GATE) && (s.wt >= limit);
+  const bool outside = kSilDirect ? sil < SIL_FULL : sil > SIL_GATE;
+  const bool skip = outside && (s.wt >= limit);
   const bool in_front = sdist <= -limit;
   const bool in_band = (sdist > -limit) && (sdist < limit);
   const float new_tw = s.tw + qual;
@@ -70,9 +76,11 @@ __device__ __forceinline__ void fuse_color(const Fuse& s, float out[4]) {
 
 // LINEAR taps of (1 - silhouette), quality and rgb from a packed frame
 // [H, W, 6] (depth | quality | silhouette | rgb) at rows v0/v1, columns
-// u0/u1 with fractions gu, gv: out = (sflip, qual, r, g, b). A 24-byte
-// pixel is read as three 8-byte loads (depth, qual) (sil, r) (g, b), not
-// five scalars.
+// u0/u1 with fractions gu, gv: out = (sflip, qual, r, g, b); with
+// kSilDirect the silhouette itself in place of sflip. A 24-byte pixel is
+// read as three 8-byte loads (depth, qual) (sil, r) (g, b), not five
+// scalars.
+template <bool kSilDirect = false>
 __device__ __forceinline__ void bilinear5(const float* __restrict__ img, int W, int v0,
                                           int v1, int u0, int u1, float gu, float gv,
                                           float out[5]) {
@@ -89,7 +97,7 @@ __device__ __forceinline__ void bilinear5(const float* __restrict__ img, int W, 
   for (int c = 0; c < 5; ++c) {
     const int q = c == 0 ? 2 : (c == 1 ? 1 : c + 1);   // sil, qual, r, g, b
     float a00 = t[0][q], a01 = t[1][q], a10 = t[2][q], a11 = t[3][q];
-    if (c == 0) { a00 = 1.f - a00; a01 = 1.f - a01; a10 = 1.f - a10; a11 = 1.f - a11; }
+    if (c == 0 && !kSilDirect) { a00 = 1.f - a00; a01 = 1.f - a01; a10 = 1.f - a10; a11 = 1.f - a11; }
     const float left = (1.f - gv) * a00 + gv * a10;
     const float right = (1.f - gv) * a01 + gv * a11;
     out[c] = (1.f - gu) * left + gu * right;

@@ -1,6 +1,7 @@
-"""Render camera, parameters and shading (mirrors the parts of
-``rgbd_recon_tpu/ops/raymarch.py`` the sweep renderer uses; the per-ray
-oracle marcher is not ported yet).
+"""Render camera, parameters, shading and the per-camera debug colors
+(mirrors the parts of ``rgbd_recon_tpu/ops/raymarch.py`` the sweep renderer
+and the splatting strategies use; the per-ray oracle marcher is not ported
+yet).
 
 The volume occupies the unit cube in "volume space"; vol_to_world maps it
 to the world bbox (recon_integration.cpp:66-71).
@@ -21,6 +22,12 @@ _LIGHT_SPECULAR = (1.0, 1.0, 1.0)
 _KS = 0.5
 _SHINE = 20.0
 _SOLID_DIFFUSE = (0.5, 0.5, 0.5)
+
+# per-camera debug colors (shading.glsl:24-30), f32[5, 3] on the CPU; move
+# to the frame's device at use
+CAMERA_COLORS = torch.from_numpy(np.array(
+    [[228, 26, 28], [55, 126, 184], [77, 175, 74], [152, 78, 163], [255, 127, 0]],
+    np.float32) / np.float32(255.0))
 
 
 class RenderCamera(NamedTuple):

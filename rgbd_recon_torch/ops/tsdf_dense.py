@@ -35,14 +35,18 @@ from .tsdf_fast import (BRICK, block_major_bricks, occupied_bricks, pack_frames,
 
 B3 = BRICK ** 3
 SIL_PL = 0.998       # bf16-tolerant silhouette gate (tsdf_pallas.py:57)
+SIL_FULL = 0.9999    # the XLA table integrator's gate on the silhouette (tsdf_fast.py:52)
 PLAIN_CHUNK = 64     # bricks per vectorized step of the plain version
 
 
-def _fuse(state, d_vox, depth, qual, sflip, rgb, limit):
-    """One sensor's TSDF + color-blend update (``_fuse_update``)."""
+def _fuse(state, d_vox, depth, qual, sil, rgb, limit, sil_direct=False):
+    """One sensor's TSDF + color-blend update (``_fuse_update``). ``sil``:
+    (1 - silhouette) under the SIL_PL gate, or with ``sil_direct`` the
+    silhouette itself under SIL_FULL (``tsdf_fast.integrate_sparse``)."""
     wt, tw, tc, tcw, tc2, tcw2 = state
     sdist = d_vox - depth
-    skip = (sflip > 1.0 - SIL_PL) & (wt >= limit)
+    outside = sil < SIL_FULL if sil_direct else sil > 1.0 - SIL_PL
+    skip = outside & (wt >= limit)
     in_front = sdist <= -limit
     in_band = (sdist > -limit) & (sdist < limit)
     new_tw = tw + qual
@@ -71,14 +75,15 @@ def fuse_init(n: int, limit: float, device) -> tuple:
             torch.zeros((n, 3, B3), device=device), torch.zeros(shape, device=device))
 
 
-def bilinear5(img, w, v0, v1, u0, u1, gu, gv):
+def bilinear5(img, w, v0, v1, u0, u1, gu, gv, sil_direct=False):
     """LINEAR taps of (1 - silhouette), quality, rgb from the packed frame
-    ``img`` f32[H*W, 6] at flat rows/columns: [..., 5]."""
+    ``img`` f32[H*W, 6] at flat rows/columns: [..., 5]; with ``sil_direct``
+    the silhouette itself in place of (1 - silhouette)."""
     chans = [2, 1, 3, 4, 5]
 
     def taps(v, u):
         t = img[v * w + u][..., chans]
-        return torch.cat([1.0 - t[..., :1], t[..., 1:]], dim=-1)
+        return t if sil_direct else torch.cat([1.0 - t[..., :1], t[..., 1:]], dim=-1)
 
     gu, gv = gu[..., None], gv[..., None]
     left = (1.0 - gv) * taps(v0, u0) + gv * taps(v1, u0)
@@ -86,14 +91,15 @@ def bilinear5(img, w, v0, v1, u0, u1, gu, gv):
     return (1.0 - gu) * left + gu * right
 
 
-def fuse_sampled(state, d_vox, depth, lin, invalid, cv, limit):
+def fuse_sampled(state, d_vox, depth, lin, invalid, cv, limit, sil_direct=False):
     """Substitute the corner pixel ``cv`` f32[6] for invalid voxels, then
-    fuse one sensor's samples (depth [n, B3], lin [n, B3, 5])."""
-    corner = torch.stack([1.0 - cv[2], cv[1], cv[3], cv[4], cv[5]])
+    fuse one sensor's samples (depth [n, B3], lin [n, B3, 5] from
+    ``bilinear5`` with the same ``sil_direct``)."""
+    corner = torch.stack([cv[2] if sil_direct else 1.0 - cv[2], cv[1], cv[3], cv[4], cv[5]])
     lin = torch.where(invalid[..., None], corner, lin)
     depth = torch.where(invalid, cv[0], depth)
     return _fuse(state, d_vox, depth, lin[..., 1], lin[..., 0],
-                 lin[..., 2:].permute(0, 2, 1), limit)
+                 lin[..., 2:].permute(0, 2, 1), limit, sil_direct)
 
 
 def fuse_finish(state):

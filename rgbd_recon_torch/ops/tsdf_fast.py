@@ -1,12 +1,24 @@
-"""Brick-sparse integration helpers and the dense voxel -> sensor warp
-table (mirrors ``rgbd_recon_tpu/ops/tsdf_fast.py``).
+"""Brick-sparse integration helpers, the dense voxel -> sensor warp table
+and the XLA table integrator (mirrors ``rgbd_recon_tpu/ops/tsdf_fast.py``).
 
 ``precompute_tables`` bakes ``sample3d(cv_xyz_inv[k], voxel_centers)`` for
 every voxel as a separable GL-exact trilinear resize (three float32
 products, TF32 off) on the pipeline's device, in the block-major layout
-the table-tier integrator reads (``IntegrationTables``; ~805 MB at 256^3 x
-4 sensors). The XLA integrator ``integrate_sparse`` of the JAX module is
-not ported: the table tier runs kernel 7 (ops/tsdf_sparse.py).
+the table-tier integrators read (``IntegrationTables``; ~805 MB at 256^3 x
+4 sensors).
+
+``integrate_sparse`` is the JAX module's XLA integrator (what the JAX
+pipeline takes for ``use_pallas=False`` and volumes under 8 bricks on an
+axis, and what ``ReconIntegration`` runs): a ``window``-px square window
+per brick and sensor at the origins of ``win_offsets``, the silhouette
+gate ``sil < SIL_FULL``, clear values filled in by ``assemble_blocks``. On
+the card it is one launch of kernel 7's window mode
+(``csrc/integrate_sparse.cu``); on the CPU its plain form
+(``tsdf_sparse.integrate_sparse_plain(..., window=)``), one vectorised step
+per chunk of bricks where the JAX function maps hat-weight products over
+the bricks. Both sample in float32 directly where JAX contracts hat
+weights, so they are held to the JAX function at the integrator bound of
+``tests/test_tsdf_affine.py:109-116``.
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.math import full_f32
 from .warp import _gl_resize_weights_np
 
@@ -158,6 +171,61 @@ def occupied_list(mask16: torch.Tensor, max_bricks: int):
     that detectable)."""
     idx, count, _ = occupied_bricks(mask16, max_bricks)
     return idx, torch.arange(max_bricks, device=mask16.device) < count, count
+
+
+def assemble_blocks(blocks, cblocks, idx_list, valid_list, vol_res, limit):
+    """[MB, B3] (+ [MB, B3, 4]) brick results -> dense volumes (TSDF
+    f32[Vz, Vy, Vx], color f32[Vz, Vy, Vx, 4]): every brick of the volume
+    takes its result from the list through an inverse permutation, the
+    clear values (-limit, 0) where no valid entry names it."""
+    vx, vy, vz = vol_res
+    nbx, nby, nbz = vx // BRICK, vy // BRICK, vz // BRICK
+    nb = nbx * nby * nbz
+    mb = blocks.shape[0]
+    dev = blocks.device
+    inv = torch.full((nb,), mb, dtype=torch.int64, device=dev)
+    sel = valid_list.to(torch.bool)
+    inv[idx_list[sel].to(torch.int64)] = torch.arange(mb, device=dev)[sel]
+    clear = torch.full((1, B3), -float(limit), device=dev)
+    vb = torch.cat([blocks, clear]).index_select(0, inv)
+    vol = (vb.reshape(nbz, nby, nbx, BRICK, BRICK, BRICK)
+           .permute(0, 3, 1, 4, 2, 5).reshape(vz, vy, vx))
+    cclear = torch.zeros((1, B3, 4), device=dev)
+    cvb = torch.cat([cblocks, cclear]).index_select(0, inv)
+    cvol = (cvb.reshape(nbz, nby, nbx, BRICK, BRICK, BRICK, 4)
+            .permute(0, 3, 1, 4, 2, 5, 6).reshape(vz, vy, vx, 4))
+    return vol, cvol
+
+
+def integrate_sparse(frames, tables: IntegrationTables, cfg, mask16: torch.Tensor,
+                     max_bricks: int = 1024, window: int = 64,
+                     win_off: torch.Tensor | None = None):
+    """Brick-sparse fused TSDF f32[Vz, Vy, Vx] + color f32[Vz, Vy, Vx, 4]
+    volumes, the XLA table integrator (module docstring). Voxels outside
+    the first ``max_bricks`` occupied bricks hold -limit / 0 (the clear
+    values, recon_integration.cpp:249-250). ``win_off``: precomputed
+    i32[K, NB, 2] window origins (``win_offsets``); derived here if None.
+    Sensor frames need H, W >= ``window``."""
+    from . import tsdf_sparse   # the kernel's module imports this one
+
+    vx, vy, vz = cfg.res
+    if vx % BRICK or vy % BRICK or vz % BRICK:
+        raise ValueError(f"volume res must be 16-aligned, got {cfg.res}")
+    nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
+    if tables.pos_blocked.shape[1] != nb:
+        raise ValueError(f"tables hold {tables.pos_blocked.shape[1]} bricks, res {cfg.res} "
+                         f"has {nb}")
+    packed = pack_frames(frames)
+    h, w = packed.shape[1], packed.shape[2]
+    if h < window or w < window:
+        raise ValueError(f"sensor frames {(h, w)} are smaller than one {window}-px window")
+    idx, _, count = occupied_list(mask16, max_bricks)
+    if win_off is None:
+        win_off = win_offsets(tables, h, w, window)
+    run = (tsdf_sparse.integrate_sparse_cuda if native.is_cuda(packed)
+           else tsdf_sparse.integrate_sparse_plain)
+    return run(packed, tables.pos_blocked, idx, count, win_off, cfg.res, float(cfg.limit),
+               window)
 
 
 def _chunks(idx, count, chunk: int):

@@ -11,6 +11,11 @@ coordinates clamped first to the image, then to the window. The kernel
 samples in float32 where the TPU kernel sampled through bf16 hat matmuls
 (with a hi/lo depth split), so the two agree to the bound of
 ``tests/test_tsdf_pallas.py:40-47``, not bitwise.
+
+With ``window`` set, the same kernel (its window mode) and plain form
+compute the XLA table integrator ``tsdf_fast.integrate_sparse`` instead:
+a ``window``-px square at the origins of ``tsdf_fast.win_offsets`` and the
+SIL_FULL gate on the silhouette itself.
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ import torch
 from .. import native
 from .tsdf import TsdfConfig
 from .tsdf_dense import bilinear5, fuse_finish, fuse_init, fuse_sampled
-from .tsdf_fast import (BRICK, IntegrationTables, _footprint_mid, occupied_list, pack_frames,
-                        scatter_bricks)
+from .tsdf_fast import (BRICK, IntegrationTables, _footprint_mid, assemble_blocks,
+                        occupied_list, pack_frames, scatter_bricks)
 
 WY = 48            # y window (rows), origins 8-aligned
 WX = 128           # x window (cols)
@@ -42,49 +47,73 @@ def win_offsets_pallas(tables: IntegrationTables, h: int, w: int) -> torch.Tenso
     return torch.stack([y8, xb], dim=-1).to(torch.int32).contiguous()
 
 
-def _brick_chunk(packed, pos, win_off, bricks, h, w, limit):
+def _brick_chunk(packed, pos, win_off, bricks, h, w, limit, window=None):
     """Fused (wt, rgb, flag) of the bricks ``bricks`` i64[n] — the plain
-    form of one kernel block each."""
+    form of one kernel block each; ``window``: the XLA integrator's square
+    window mode (module docstring)."""
     state = fuse_init(bricks.shape[0], limit, packed.device)
+    direct = window is not None
+    wy, wx = (window, window) if direct else (WY, WX)
     for k in range(packed.shape[0]):
         pc = pos[k, bricks]                                       # [n, B3, 3]
         u, v, d_vox = pc[..., 0], pc[..., 1], pc[..., 2]
         y_lo = win_off[k, bricks, 0].to(torch.int64)[:, None]
-        x_lo = win_off[k, bricks, 1].to(torch.int64)[:, None] * XSTRIDE
+        x_lo = win_off[k, bricks, 1].to(torch.int64)[:, None]
+        if direct:   # origins clamped into the image, as dynamic_slice clamps them
+            y_lo, x_lo = torch.clamp(y_lo, 0, h - wy), torch.clamp(x_lo, 0, w - wx)
+        else:
+            x_lo = x_lo * XSTRIDE
         xl, yl = x_lo.to(torch.float32), y_lo.to(torch.float32)
-        ux = torch.clamp(torch.clamp(u * w - 0.5, 0.0, w - 1.0) - xl, 0.0, WX - 1.0)
-        vy = torch.clamp(torch.clamp(v * h - 0.5, 0.0, h - 1.0) - yl, 0.0, WY - 1.0)
-        nu = torch.clamp(torch.clamp(torch.floor(u * w), 0.0, w - 1.0) - xl, 0.0, WX - 1.0)
-        nv = torch.clamp(torch.clamp(torch.floor(v * h), 0.0, h - 1.0) - yl, 0.0, WY - 1.0)
+        ux = torch.clamp(torch.clamp(u * w - 0.5, 0.0, w - 1.0) - xl, 0.0, wx - 1.0)
+        vy = torch.clamp(torch.clamp(v * h - 0.5, 0.0, h - 1.0) - yl, 0.0, wy - 1.0)
+        nu = torch.clamp(torch.clamp(torch.floor(u * w), 0.0, w - 1.0) - xl, 0.0, wx - 1.0)
+        nv = torch.clamp(torch.clamp(torch.floor(v * h), 0.0, h - 1.0) - yl, 0.0, wy - 1.0)
         img = packed[k].reshape(h * w, 6)
         depth = img[(y_lo + nv.to(torch.int64)) * w + x_lo + nu.to(torch.int64), 0]
         iu, iv = torch.floor(ux), torch.floor(vy)
         gu, gv = ux - iu, vy - iv
         iu, iv = iu.to(torch.int64), iv.to(torch.int64)
-        lin = bilinear5(img, w, y_lo + iv, y_lo + torch.clamp(iv + 1, max=WY - 1),
-                        x_lo + iu, x_lo + torch.clamp(iu + 1, max=WX - 1), gu, gv)
-        state = fuse_sampled(state, d_vox, depth, lin, u < 0.0, packed[k, 0, 0], limit)
+        lin = bilinear5(img, w, y_lo + iv, y_lo + torch.clamp(iv + 1, max=wy - 1),
+                        x_lo + iu, x_lo + torch.clamp(iu + 1, max=wx - 1), gu, gv, direct)
+        state = fuse_sampled(state, d_vox, depth, lin, u < 0.0, packed[k, 0, 0], limit,
+                             direct)
     return fuse_finish(state)
 
 
-def integrate_sparse_plain(packed, pos, idx, count, win_off, res, limit):
+def integrate_sparse_plain(packed, pos, idx, count, win_off, res, limit, window=None):
     """PyTorch form of kernel 7 (see integrate_sparse); takes the kernel's
-    arguments."""
+    arguments. With ``window`` (the XLA integrator's mode) the bricks are
+    assembled by ``tsdf_fast.assemble_blocks``, as the JAX function does."""
     _, h, w, _ = packed.shape
 
     def chunk(bricks):
-        return _brick_chunk(packed, pos, win_off, bricks, h, w, limit)
+        return _brick_chunk(packed, pos, win_off, bricks, h, w, limit, window)
 
-    return scatter_bricks(chunk, idx, count, res, limit, PLAIN_CHUNK)
+    if window is None:
+        return scatter_bricks(chunk, idx, count, res, limit, PLAIN_CHUNK)
+    n = int(count.reshape(-1)[0])
+    parts = [chunk(idx[s:min(s + PLAIN_CHUNK, n)].to(torch.int64))
+             for s in range(0, n, PLAIN_CHUNK)]
+    if parts:
+        blocks = torch.cat([p[0] for p in parts])
+        cblocks = torch.cat([torch.cat([p[1], p[2][:, None]], dim=1) for p in parts])
+    else:
+        blocks = torch.zeros((0, BRICK ** 3), device=packed.device)
+        cblocks = torch.zeros((0, 4, BRICK ** 3), device=packed.device)
+    valid = torch.ones(n, dtype=torch.bool, device=packed.device)
+    return assemble_blocks(blocks, cblocks.permute(0, 2, 1), idx[:n], valid, res, limit)
 
 
 _INTEGRATE_SPARSE = native.Kernel(
     "integrate_sparse", [native.P] * 7 + [native.I] * 8 + [native.F])
+_INTEGRATE_SPARSE_WINDOW = native.Kernel(
+    "integrate_sparse_window", [native.P] * 7 + [native.I] * 9 + [native.F])
 
 
-def integrate_sparse_cuda(packed, pos, idx, count, win_off, res, limit):
-    """Kernel 7 on the card (``csrc/integrate_sparse.cu``); the arguments
-    of ``integrate_sparse_plain``. No host sync."""
+def integrate_sparse_cuda(packed, pos, idx, count, win_off, res, limit, window=None):
+    """Kernel 7 on the card (``csrc/integrate_sparse.cu``; with ``window``
+    its window mode, a counter of its own); the arguments of
+    ``integrate_sparse_plain``. No host sync."""
     vx, vy, vz = res
     num_k, h, w, _ = packed.shape
     nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
@@ -97,9 +126,13 @@ def integrate_sparse_cuda(packed, pos, idx, count, win_off, res, limit):
     native.check(win_off, "win_off", torch.int32, (num_k, nb, 2), dev)
     tsdf = torch.empty((vz, vy, vx), dtype=torch.float32, device=dev)
     color = torch.empty((vz, vy, vx, 4), dtype=torch.float32, device=dev)
-    _INTEGRATE_SPARSE(packed.data_ptr(), pos.data_ptr(), idx.data_ptr(), count.data_ptr(),
-                      win_off.data_ptr(), tsdf.data_ptr(), color.data_ptr(), num_k, h, w,
-                      nb, vx // BRICK, vy // BRICK, vz // BRICK, max_bricks, limit)
+    args = (packed.data_ptr(), pos.data_ptr(), idx.data_ptr(), count.data_ptr(),
+            win_off.data_ptr(), tsdf.data_ptr(), color.data_ptr(), num_k, h, w, nb,
+            vx // BRICK, vy // BRICK, vz // BRICK, max_bricks)
+    if window is None:
+        _INTEGRATE_SPARSE(*args, limit)
+    else:
+        _INTEGRATE_SPARSE_WINDOW(*args, int(window), limit)
     return tsdf, color
 
 

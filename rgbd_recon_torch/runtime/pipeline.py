@@ -14,27 +14,29 @@ This is the staged fast path of the JAX pipeline with its gates:
   pixel warp  affine (residual <= ``warp_tol``) -> piecewise (``warp_knots``
               knots, residual <= ``pw_warp_tol``; kernel 5) -> the exact
               gather of the cv volumes (also ``use_warp=False``)
-  integrator  per-brick quadratic warp (``affine_tol``): dense emit into
-              the sweep's z-major layout when ``Vx % 128 == 0`` (kernel 1),
-              else block-major (kernel 6); the dense warp table for
-              ``use_affine=False`` or a residual over ``affine_tol``
-              (kernel 7, no depth-band cull)
+  integrator  ``use_pallas`` on: the per-brick quadratic warp
+              (``affine_tol``): dense emit into the sweep's z-major layout
+              when ``Vx % 128 == 0`` (kernel 1), else block-major (kernel
+              6); the dense warp table for ``use_affine=False`` or a
+              residual over ``affine_tol`` (kernel 7, no depth-band cull).
+              ``use_pallas`` off: the XLA table integrator
+              ``tsdf_fast.integrate_sparse`` (kernel 7's window mode, no
+              affine bake, no depth-band cull)
+
+``use_pallas=None`` is the JAX gate (rgbd_recon_tpu/runtime/pipeline.py:
+444-449): on when the volume has at least 8 bricks on every axis
+(``min(res) // 16 >= 8``). Its other clause there, "the backend is a TPU",
+holds here wherever the port's kernels exist: on the card, and through
+their plain versions on the CPU. So a 48^3 volume (``voxel_size`` 0.05)
+integrates as the JAX pipeline integrates it, with the XLA formulation;
+``use_pallas=True`` keeps the kernel tiers at any size.
 
 What the port does not implement is rejected in ``_configure``, not
-ignored: fused mode, the reference (non-brick) path (``fast_path`` or
-``use_bricks`` off, volumes that are not 16-aligned) and
-``use_pallas=False``. Session bakes run lazily at the first frame's sensor
-size, in torch, on the pipeline's ``device``.
-
-Small volumes take another integrator than the JAX pipeline. Where
-``min(res) // 16 < 8`` (e.g. the 48^3 a ``voxel_size`` of 0.05 derives),
-the JAX pipeline sets ``use_pallas`` off and integrates with the XLA
-table integrator ``tsdf_fast.integrate_sparse``
-(rgbd_recon_tpu/runtime/pipeline.py:444-449), which the port has not
-ported; the port takes the quadratic-warp kernels at every size. The two
-are different formulations of the same fusion: the port's frame is held
-against the JAX pipeline's at the render-parity bounds of
-tests/test_golden.py:65-69 (tests/test_torch_app.py).
+ignored: fused mode and the reference (non-brick) path (``fast_path`` or
+``use_bricks`` off, volumes that are not 16-aligned). Session bakes run
+lazily at the first frame's sensor size, in torch, on the pipeline's
+``device``; ``preprocess`` runs them and the preprocessing alone (the
+reconstruction strategies of ``models/`` draw from its frames).
 
 Session API (the app's control channel): ``retune`` re-derives only what
 a change invalidates, ``reload`` rebuilds the stages keeping every bake,
@@ -154,7 +156,6 @@ class FramePipeline:
             "fused": cfg.fused,
             "fast_path=False": not cfg.fast_path,
             "use_bricks=False": not cfg.use_bricks,
-            "use_pallas=False": cfg.use_pallas is False,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -189,7 +190,7 @@ class FramePipeline:
             return
 
         self.affine = self.tables = None
-        if cfg.use_affine is not False:
+        if self._use_pallas() and cfg.use_affine is not False:
             self._log(f"baking per-brick affine warp at {self.tsdf_cfg.res} ...")
             aff = tsdf_affine.bake_affine(self.rig, self.tsdf_cfg, self.device)
             err = float(aff.max_err.max())
@@ -209,6 +210,13 @@ class FramePipeline:
         self._warp = self._drig = None
         self._win_off = None
         self._wy = self._wx = self._xstride = None
+
+    def _use_pallas(self) -> bool:
+        """The integrator tier gate (module docstring): the kernel tiers,
+        or with False the XLA table integrator."""
+        if self.cfg.use_pallas is not None:
+            return self.cfg.use_pallas
+        return min(self.tsdf_cfg.res) // BRICK >= 8
 
     def retune(self, voxel_size: float | None = None,
                brick_size: float | None = None,
@@ -274,7 +282,10 @@ class FramePipeline:
             self._warp = self._bake_warp(h, w)
             # the gather tier reads the cv volumes every frame
             self._drig = device_rig(self.rig, self.device, volumes=self._warp is None)
-            if self.affine is None:
+            if not self._use_pallas():
+                self._win_off = tsdf_fast.win_offsets(self.tables, h, w,
+                                                      self.cfg.sample_window)
+            elif self.affine is None:
                 self._win_off = win_offsets_pallas(self.tables, h, w)
             else:
                 self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
@@ -324,6 +335,10 @@ class FramePipeline:
 
     def _integrate(self, frames, mask16, cls):
         """2integrate: fused TSDF + color volumes, by the integrator tier."""
+        if not self._use_pallas():
+            return tsdf_fast.integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
+                                              self.max_bricks, self.cfg.sample_window,
+                                              self._win_off)
         if self.affine is None:
             return integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
                                     self.max_bricks, self._win_off)
@@ -352,21 +367,35 @@ class FramePipeline:
 
     # -- public API --------------------------------------------------------
 
-    def _inputs(self, depth_m, color, modelview, proj):
-        def t(a, dtype=None):
-            a = torch.as_tensor(a) if not isinstance(a, torch.Tensor) else a
-            return a.to(self.device, dtype) if dtype else a.to(self.device)
+    def _t(self, a, dtype=None) -> torch.Tensor:
+        a = torch.as_tensor(a) if not isinstance(a, torch.Tensor) else a
+        return a.to(self.device, dtype) if dtype else a.to(self.device)
 
+    def _sensor_inputs(self, depth_m, color):
+        """The frame's depth f32 and color (u8 or f32) on the device, after
+        the session bakes for its sensor size."""
+        depth = self._t(depth_m, torch.float32).contiguous()
+        self._session(depth.shape[1], depth.shape[2])
+        col = self._t(color)
+        if col.dtype != torch.uint8:
+            col = col.to(torch.float32)
+        return depth, col.contiguous()
+
+    def _inputs(self, depth_m, color, modelview, proj):
         mv_np = np.asarray(modelview.cpu() if isinstance(modelview, torch.Tensor)
                            else modelview, np.float32)
         axis, flip = rmf.pick_axis(mv_np, rm.vol_to_world_matrix(self.bbox))
-        depth = t(depth_m, torch.float32).contiguous()
-        self._session(depth.shape[1], depth.shape[2])
-        col = t(color)
-        if col.dtype != torch.uint8:
-            col = col.to(torch.float32)
-        return (depth, col.contiguous(), t(mv_np), t(proj, torch.float32),
-                axis, flip)
+        depth, col = self._sensor_inputs(depth_m, color)
+        return (depth, col, self._t(mv_np), self._t(proj, torch.float32), axis, flip)
+
+    def preprocess(self, depth_m, color) -> pp.ProcessedFrames:
+        """The session bakes and 1preprocess's sensor filtering alone (no
+        brick marking, integration or render): the frames the
+        reconstruction strategies of ``models/`` draw from, and the app's
+        texture dumps. depth_m f32[K,H,W] meters; color f32[K,Hc,Wc,3] (or
+        u8)."""
+        depth, col = self._sensor_inputs(depth_m, color)
+        return pp.preprocess(depth, col, self._drig, self.pre_cfg, self._warp)
 
     def step(self, depth_m, color, modelview, proj) -> FrameOutput:
         """One frame. depth_m f32[K,H,W] meters; color f32[K,Hc,Wc,3] (or

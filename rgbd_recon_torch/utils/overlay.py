@@ -7,8 +7,8 @@ mono mode (source/kinect_client.cpp:672-708): the bounding-box "grid"
 (CalibVolumes::drawFrustums -> Frustum::draw, frustum.cpp:40-100). Headless,
 the same lines are rasterized host-side (numpy) onto the output image,
 depth-tested against the renderer's depth buffer like GL would. The
-occupied-brick cubes (``brick_segments``) draw only in recon modes other
-than integration, which the port does not run yet.
+occupied-brick cubes (``brick_segments``, drawOccupiedBricks) draw only in
+recon modes other than integration (kinect_client.cpp:682-684).
 """
 from __future__ import annotations
 
@@ -54,6 +54,21 @@ def bbox_segments(bbox: Bbox) -> np.ndarray:
 def frustum_segments(corners: np.ndarray) -> np.ndarray:
     """[12, 2, 3] frustum wireframe from the 8 corner points."""
     return np.asarray(corners, np.float32)[_FRUSTUM_EDGES]
+
+
+def brick_segments(mask: np.ndarray, grid, max_bricks: int = 256) -> np.ndarray:
+    """Wire cubes for occupied bricks (drawOccupiedBricks). ``mask``
+    bool[bz, by, bx]; at most ``max_bricks`` are drawn (display cap)."""
+    idx = np.argwhere(np.asarray(mask))[:max_bricks]           # rows (z, y, x)
+    if idx.size == 0:
+        return np.zeros((0, 2, 3), np.float32)
+    bmin = np.asarray(grid.bbox_min, np.float32)
+    s = np.float32(grid.brick_size)
+    segs = []
+    for z, y, x in idx:
+        lo = bmin + np.array([x, y, z], np.float32) * s
+        segs.append(box_corners(lo, lo + s)[_CUBE_EDGES])
+    return np.concatenate(segs)
 
 
 def draw_segments(

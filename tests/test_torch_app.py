@@ -4,9 +4,9 @@ the CPU, on the scene fixture of tests/test_app.py:16-42 (2 sensors at
 port's own ``write_reference_scene`` (byte-identical to the JAX writer's,
 tests/test_torch_io.py).
 
-The JAX app integrates a 48^3 volume with the XLA table integrator and
-the port with the quadratic-warp kernels' plain versions (the port
-pipeline's docstring), so the frames are held at the render-parity bounds
+Both apps integrate the 48^3 volume with the XLA table integrator (the
+pipelines' use_pallas gate), which the port computes in float32 where JAX
+contracts hat weights, so the frames are held at the render-parity bounds
 of tests/test_golden.py:65-69, not bitwise. The JAX frame is computed once
 for the module.
 """
@@ -34,6 +34,7 @@ from rgbd_recon_torch.io.stream import FrameFormat, StreamWriter
 from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
 from rgbd_recon_torch.utils.math import Bbox
 from rgbd_recon_torch.utils.png import read_png
+from rgbd_recon_torch.utils.timers import TimerDatabase
 
 CONF = ("recon_mode: 1\nscreenWidth: 96\nscreenHeight: 64\nplay: true\n"
         "voxel_size: 0.05\nbrick_size: 0.2\ntsdf_limit: 0.02\n"
@@ -91,22 +92,30 @@ def _first_frame(app):
 
 @pytest.fixture(scope="module")
 def jax_frame(scene):
-    rgba, out = _first_frame(_app(JKinectClientApp, JAppConfig, jload_config, scene))
+    app = _app(JKinectClientApp, JAppConfig, jload_config, scene)
+    rgba, out = _first_frame(app)
     return types.SimpleNamespace(color=np.asarray(rgba), depth=np.asarray(out.depth),
-                                 hit=np.asarray(out.hit))
+                                 hit=np.asarray(out.hit),
+                                 use_pallas=app.pipeline._use_pallas())
 
 
 def test_app_frame_matches_jax(scene, jax_frame):
     """The slice as a whole: the port's app frame (replay, host decode,
     FramePipeline on the CPU) against the JAX app's, at the render-parity
-    bounds of tests/test_golden.py:65-69."""
+    bounds of tests/test_golden.py:65-69. At 48^3 both pipelines take the
+    XLA table integrator (the use_pallas gate: fewer than 8 bricks an
+    axis), with the 64-px window origins of tsdf_fast.win_offsets."""
     app = _app(KinectClientApp, AppConfig, load_config, scene, device="cpu")
-    assert app.pipeline.tsdf_cfg.res == (48, 48, 48)
+    pipe = app.pipeline
+    assert pipe.tsdf_cfg.res == (48, 48, 48)
+    assert not pipe._use_pallas() and pipe.affine is None and pipe.tables is not None
+    assert jax_frame.use_pallas is False
     rgba, out = _first_frame(app)
     assert rgba.shape == (64, 96, 4) and bool(torch.isfinite(rgba).all())
     got = types.SimpleNamespace(color=rgba.numpy(), depth=out.depth.numpy(),
                                 hit=out.hit.numpy())
     s = render_parity(jax_frame, got)
+    print(f"app frame vs the JAX app's: {s}")
     assert s["hit_agreement"] > 0.995, s
     assert s["psnr_rgb"] > 30.0, s
     assert s["ssim_rgb"] > 0.95, s
@@ -120,6 +129,9 @@ def test_app_replay_run_cpu(scene, monkeypatch):
     and texture PNGs and the reference-named timer CSVs."""
     d = scene["dir"]
     monkeypatch.chdir(d)
+    # a fresh process-wide timer database: the CSVs list every timer of
+    # the process, and other test files of this worker register their own
+    monkeypatch.setattr(TimerDatabase, "_instance", None)
     rc = main(["scene.ks", "run.conf", "-recordings", "recordings", "-outdir",
                str(d / "frames"), "-dump-every", "2", "-dump-textures", "-frames", "4",
                "-device", "cpu"])
@@ -132,29 +144,30 @@ def test_app_replay_run_cpu(scene, monkeypatch):
     csvs = glob.glob(str(d / "mean_run,*.csv"))
     assert len(csvs) == 1, os.listdir(d)
     header, values = open(csvs[0]).read().splitlines()
-    assert header == 'timer,"1preprocess","2integrate","3recon","draw","holefill"'
+    # the stage timers and the strategies' draw_<name> timers, as the JAX app's
+    assert header == ('timer,"1preprocess","2integrate","3recon","draw","draw_calibs",'
+                      '"draw_mvt","draw_points","draw_trigrid","holefill"')
     assert values.startswith("run,")
     assert glob.glob(str(d / "min_run,*.csv")) and glob.glob(str(d / "max_run,*.csv"))
 
 
 def test_app_refuses_what_it_does_not_run(scene):
-    """Recon modes 0/2/3 and ``bricking: false`` raise at start-up."""
-    for change in (dict(recon_mode=0), dict(recon_mode=3), dict(bricking=False)):
-        cfg = AppConfig()
-        load_config(cfg, scene["conf"])
-        for k, v in change.items():
-            setattr(cfg, k, v)
-        with pytest.raises(NotImplementedError):
-            KinectClientApp(str(scene["dir"] / "scene.ks"), cfg,
-                            recordings_dir=str(scene["dir"] / "recordings"),
-                            device="cpu", log=lambda *a: None)
+    """``bricking: false`` raises at start-up (the port has only the
+    brick-sparse path)."""
+    cfg = AppConfig()
+    load_config(cfg, scene["conf"])
+    cfg.bricking = False
+    with pytest.raises(NotImplementedError):
+        KinectClientApp(str(scene["dir"] / "scene.ks"), cfg,
+                        recordings_dir=str(scene["dir"] / "recordings"),
+                        device="cpu", log=lambda *a: None)
 
 
 def test_app_control_channel(scene):
     """POST /control mid-run on the viewer (bound to 127.0.0.1): a
-    tsdf_limit retune and a shade-mode rebuild apply, a recon-mode and a
-    bricking-off command are refused with a log line, and the loop keeps
-    streaming; GET /state reflects it."""
+    tsdf_limit retune, a shade-mode rebuild and a switch to recon mode 2
+    (trigrid) apply with a log line each, a bricking-off command is refused
+    with a log line, and the loop keeps streaming; GET /state reflects it."""
     logs = []
     app = _app(KinectClientApp, AppConfig, load_config, scene, device="cpu",
                serve_port=0)
@@ -162,7 +175,7 @@ def test_app_control_channel(scene):
     try:
         assert app.viewer._server.server_address[0] == "127.0.0.1"
         assert app.frame_step() is not None
-        aff, warp = app.pipeline.affine, app.pipeline._warp
+        tables, warp = app.pipeline.tables, app.pipeline._warp
         body = json.dumps({"tsdf_limit": 0.04, "recon_mode": 2, "bricking": False,
                            "shade_mode": 1, "draw_grid": True}).encode()
         req = urllib.request.Request(f"http://127.0.0.1:{app.viewer.port}/control",
@@ -172,13 +185,15 @@ def test_app_control_channel(scene):
         assert isinstance(rgba, np.ndarray) and rgba.shape == (64, 96, 4)  # grid overlay
         assert app.pipeline.cfg.tsdf_limit == pytest.approx(0.04)
         assert app.pipeline.cfg.shade_mode == 1 and app.pipeline.cfg.use_bricks
-        assert app.cfg.recon_mode == 1
-        assert app.pipeline.affine is aff and app.pipeline._warp is warp
-        assert any("recon_mode 2" in s and "refused" in s for s in logs), logs
+        assert app.cfg.recon_mode == 2
+        assert app.pipeline.tables is tables and app.pipeline._warp is warp
+        assert any(s == "control: recon_mode -> trigrid" for s in logs), logs
+        assert not any("refused" in s and "recon_mode" in s for s in logs), logs
         assert any("bricking off refused" in s for s in logs), logs
+        assert TimerDatabase.instance().timers["draw_trigrid"].count >= 1
         state = json.load(urllib.request.urlopen(
             f"http://127.0.0.1:{app.viewer.port}/state", timeout=10))
-        assert state["recon_mode"] == 1 and state["tsdf_limit"] == pytest.approx(0.04)
+        assert state["recon_mode"] == 2 and state["tsdf_limit"] == pytest.approx(0.04)
         assert app.frame_step() is not None
     finally:
         app.quit()
@@ -274,9 +289,10 @@ def test_retune_tsdf_limit_keeps_bakes(scene):
     """A tsdf_limit retune keeps the affine bake, the pixel warp, the device
     rig and the windows (the same objects), re-derives the cull bake, and
     then renders what a fresh pipeline at the new limit renders, bit for
-    bit."""
+    bit (use_pallas=True: the 48^3 volume on the quadratic-warp tier,
+    which has the cull bake)."""
     _, rig, _, _ = load_scene(scene["ks"])
-    pipe = _pipe(rig)
+    pipe = _pipe(rig, use_pallas=True)
     mv, proj = pipe.default_camera()
     pipe.step(scene["depth"], scene["color"], mv, proj)
     kept = (pipe.affine, pipe._warp, pipe._drig, pipe._win_off)
@@ -286,7 +302,8 @@ def test_retune_tsdf_limit_keeps_bakes(scene):
     assert all(a is b for a, b in zip(kept, (pipe.affine, pipe._warp, pipe._drig,
                                              pipe._win_off)))
     assert pipe._cull_bake is not cull
-    fresh = _pipe(rig, tsdf_limit=0.04).step(scene["depth"], scene["color"], mv, proj)
+    fresh = _pipe(rig, tsdf_limit=0.04, use_pallas=True).step(scene["depth"], scene["color"],
+                                                               mv, proj)
     for f in ("color", "depth", "hit", "tsdf", "occupied_bricks"):
         assert torch.equal(getattr(out, f), getattr(fresh, f)), f
     assert float(out.tsdf.min()) == pytest.approx(-0.04)
@@ -307,18 +324,20 @@ def test_retune_voxel_size_matches_jax_res(scene):
                                                  voxel_size=0.05, brick_size=0.2,
                                                  tsdf_limit=0.02))
     assert pipe.tsdf_cfg.res == jpipe.tsdf_cfg.res == (48, 48, 48)
-    aff = pipe.affine
+    tables = pipe.tables
     pipe.retune(voxel_size=0.1)
     jpipe.retune(voxel_size=0.1)
     assert pipe.tsdf_cfg.res == jpipe.tsdf_cfg.res == (32, 32, 32)
-    assert pipe.affine is not aff
+    # both volumes are under 8 bricks an axis: the warp tables, re-baked
+    assert pipe.affine is None and jpipe.affine is None
+    assert pipe.tables is not tables and tuple(pipe.tables.pos_blocked.shape[:2]) == (2, 8)
     mv, proj = pipe.default_camera()
     pipe.warmup(scene["depth"], scene["color"], mv, proj)
     for stage in ("session bakes", "1preprocess", "2integrate", "3recon", "holefill"):
         assert any(s.startswith(f"  {stage}") for s in logs), (stage, logs)
-    kept = (pipe.affine, pipe._warp, pipe._win_off)
+    kept = (pipe.tables, pipe._warp, pipe._win_off)
     pipe.reload()
-    assert all(a is b for a, b in zip(kept, (pipe.affine, pipe._warp, pipe._win_off)))
+    assert all(a is b for a, b in zip(kept, (pipe.tables, pipe._warp, pipe._win_off)))
     out = pipe.step(scene["depth"], scene["color"], mv, proj)
     assert tuple(out.tsdf.shape) == (32, 32, 32) and bool(torch.isfinite(out.color).all())
     n = len(logs)

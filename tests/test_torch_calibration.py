@@ -52,9 +52,10 @@ def test_scene_frames_bit_identical(kind):
 
 def test_port_runs_without_jax():
     """With ``import jax`` (and ``import zmq``) made to fail, every module of
-    the port imports, one CPU FramePipeline.step runs on a tiny rig built by
-    the port's own calibration code, and the port's app replays a scene the
-    port wrote — what chip_smoke.py needs on the card's machine."""
+    the port imports (``models/`` included), one CPU FramePipeline.step and
+    two strategies' draws run on a tiny rig built by the port's own
+    calibration code, and the port's app replays a scene the port wrote —
+    what chip_smoke.py needs on the card's machine."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -80,6 +81,14 @@ def test_port_runs_without_jax():
         pipe.check_capacity(out)
         assert out.color.shape == (48, 64, 4)
         assert bool(out.color.isfinite().all())
+        import torch
+        from rgbd_recon_torch import models
+        from rgbd_recon_torch.ops.raymarch import RenderCamera
+        ctx = models.ReconContext(rig=rig, bbox=bbox, width=64, height=48, device="cpu")
+        cam = RenderCamera(torch.from_numpy(mv), torch.from_numpy(pr), 64, 48)
+        frames = pipe.preprocess(d, c)
+        for m in (models.ReconPoints(ctx), models.ReconCalibs(ctx)):
+            assert bool((m.draw(frames, cam)[..., 3] > 0).any()), m.name
         import contextlib, glob, io, os, tempfile
         from rgbd_recon_torch import app
         from rgbd_recon_torch.io.stream import FrameFormat, StreamWriter
@@ -117,16 +126,19 @@ def test_port_runs_without_jax():
 
 def test_entry_points_default_to_the_card():
     """The pipeline, the five public session bakes, the app and its device
-    feed run on the card unless the caller passes ``device="cpu"``
+    feed, and the strategies' context run on the card unless the caller
+    passes ``device="cpu"``
     (signatures only: no GPU needed)."""
     import inspect
 
     from rgbd_recon_torch.app import KinectClientApp
     from rgbd_recon_torch.io.ingest import DeviceFeed
+    from rgbd_recon_torch.models import ReconContext
     from rgbd_recon_torch.ops import tsdf_affine, tsdf_fast, warp
     from rgbd_recon_torch.runtime.pipeline import FramePipeline
 
     for fn in (FramePipeline.__init__, warp.bake_pixel_warp, warp.bake_piecewise_warp,
                tsdf_affine.bake_affine, tsdf_fast.precompute_tables,
-               tsdf_fast.tables_cached, KinectClientApp.__init__, DeviceFeed.__init__):
+               tsdf_fast.tables_cached, KinectClientApp.__init__, DeviceFeed.__init__,
+               ReconContext):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

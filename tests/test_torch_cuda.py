@@ -234,7 +234,7 @@ def _assert_integrator_bound(vol, cvol, pvol, pcvol):
 def test_integrate_affine_cuda(dev):
     """Kernel 6 on a 96^3 volume (Vx % 128 != 0), at the bound between
     formulations."""
-    pipe, depth, color, mv, proj = _small_pipeline(dev, n=96)
+    pipe, depth, color, mv, proj = _small_pipeline(dev, n=96, use_pallas=True)
     packed, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
     rest = (pipe._win_off, pipe.tsdf_cfg.res, pipe._wy, pipe.tsdf_cfg.limit)
     vol, cvol = tsdf_persist.integrate_affine_cuda(planes, pipe.affine.coeffs, idx, count,
@@ -267,7 +267,7 @@ def test_scatter_dense_cuda(dev):
 def test_integrate_affine_raw_scatter_cuda(dev):
     """Kernel 6 in raw mode, assembled by kernel 8, is kernel 6's
     voxel-order output bit for bit (color after the channel permute)."""
-    pipe, depth, color, mv, proj = _small_pipeline(dev, n=96)
+    pipe, depth, color, mv, proj = _small_pipeline(dev, n=96, use_pallas=True)
     _, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
     args = (planes, pipe.affine.coeffs, idx, count, slots, pipe._win_off, pipe.tsdf_cfg.res,
             pipe._wy, pipe.tsdf_cfg.limit)
@@ -288,6 +288,63 @@ def test_integrate_sparse_cuda(dev):
             pipe.tsdf_cfg.limit)
     vol, cvol = tsdf_sparse.integrate_sparse_cuda(*args)
     _assert_integrator_bound(vol, cvol, *tsdf_sparse.integrate_sparse_plain(*args))
+
+
+@pytest.mark.parametrize("n, shift", [(64, 0), (96, 0), (96, 40)])
+def test_integrate_sparse_window_cuda(dev, n, shift):
+    """Kernel 7's window mode (the XLA table integrator that a volume under
+    8 bricks an axis takes) against its plain form at the integrator
+    bound: the pipeline's own tier and windows, then (shift) origins moved
+    past the image, which both clamp into it as dynamic_slice does."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev, n=n)
+    assert not pipe._use_pallas() and pipe.affine is None
+    packed, idx, count, _, _ = _integrator_args(pipe, depth, color, mv, proj)
+    win_off = (pipe._win_off + shift).contiguous()
+    args = (packed, pipe.tables.pos_blocked, idx, count, win_off, pipe.tsdf_cfg.res,
+            pipe.tsdf_cfg.limit)
+    kern = native.KERNELS["integrate_sparse_window"]
+    before = kern.launches
+    vol, cvol = tsdf_sparse.integrate_sparse_cuda(*args, window=64)
+    assert kern.launches == before + 1
+    _assert_integrator_bound(vol, cvol, *tsdf_sparse.integrate_sparse_plain(*args, window=64))
+    before = kern.launches
+    pipe.step(depth, color, mv, proj)
+    assert kern.launches == before + 1
+
+
+def test_splat_deterministic_cuda(dev):
+    """The forward splat repeats bit for bit on the card (pass 1 a min,
+    pass 2 sorted sums, zbuffer_points' winner the last update), and agrees
+    with the CPU where the projection's rounding (cuBLAS against the CPU's
+    products) moves no point across a pixel or a depth order: all but
+    1e-3 of the pixels within 1e-5."""
+    from rgbd_recon_torch.ops import splat
+    from rgbd_recon_torch.ops.raymarch import RenderCamera
+    from rgbd_recon_torch.utils.math import look_at, perspective
+
+    rng = np.random.default_rng(13)
+    n = 200_000
+    world = rng.uniform([-1.6, -1.2, -4.0], [1.6, 1.2, 1.0], (n, 3)).astype(np.float32)
+    world[1::7] = world[0::7][:len(world[1::7])]     # exact ties
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    qual = rng.uniform(0.1, 1, n).astype(np.float32)
+    size = rng.uniform(0.5, 7, n).astype(np.float32)
+    valid = rng.uniform(0, 1, n) < 0.9
+    mv = look_at(np.array([0.0, 0.0, 2.0], np.float32), np.zeros(3, np.float32), [0, 1, 0])
+    proj = perspective(50.0, 320 / 240, 0.1, 50.0)
+    runs = {}
+    for d in (dev, dev, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(d) for a in (world, colors, qual, valid, size)]
+        cam = RenderCamera(torch.from_numpy(mv).to(d), torch.from_numpy(proj).to(d), 320, 240)
+        buf = splat.splat(*t[:4], cam, footprint=6, size=t[4])
+        zp = splat.zbuffer_points(t[0], t[1], t[3], cam)
+        runs.setdefault(d.type, []).append([x.cpu() for x in (*buf, *zp)])
+    (a, b), (c,) = runs["cuda"], runs["cpu"]
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for x, y in zip(a, c):
+        dev_px = (x - y).abs().nan_to_num(0.0).reshape(240, 320, -1).amax(-1) > 1e-5
+        assert float(dev_px.float().mean()) < 1e-3
+    assert float((a[0][..., 3] > 0).float().mean()) > 0.1
 
 
 MAXK = 8   # sensors a kernel of csrc/integrate_dense.cu takes (csrc/fuse.cuh)

@@ -252,7 +252,9 @@ def test_distorted_slice_matches_jax(ref):
     """The whole slice on the distorted rig (piecewise tier, dense emit at
     128 x 64 x 64) with the port's own bakes vs the JAX stage chain (piecewise
     warp, Pallas dense integration in interpret mode), hole filling
-    included, at the render-parity bounds of tests/test_golden.py:65-69."""
+    included, at the render-parity bounds of tests/test_golden.py:65-69.
+    With 4 bricks on its shortest axis the volume takes the kernel tiers
+    only with use_pallas=True (the gate's default is the XLA integrator)."""
     rig, bbox = ref.rig, ref.bbox
     cfg = JTsdfConfig(RES, LIMIT)
     voxel = float(np.max(bbox.size / np.array(RES)))
@@ -285,7 +287,7 @@ def test_distorted_slice_matches_jax(ref):
     logs = []
     pipe = FramePipeline(from_jax(rig), PipelineConfig(
         render_width=RW, render_height=RH, tsdf_res=RES, voxel_size=voxel,
-        sweep_res=SWEEP), log=logs.append, device="cpu")
+        sweep_res=SWEEP, use_pallas=True), log=logs.append, device="cpu")
     got = pipe.step(ref.depth, ref.color, mv, proj)
     assert isinstance(pipe._warp, PiecewiseWarp) and pipe._dense_emit, logs
     assert pipe.check_capacity(got) == int(np.asarray(m2).sum())

@@ -280,16 +280,40 @@ def test_slice_matches_jax(ref):
 
 
 @pytest.mark.parametrize("change", [
-    dict(fused=True), dict(use_pallas=False),
-    dict(tsdf_res=(100, 100, 100)), dict(fast_path=False),
+    dict(fused=True), dict(tsdf_res=(100, 100, 100)), dict(fast_path=False),
 ])
 def test_pipeline_rejects_what_it_does_not_implement(small_rig, change):
-    """Options outside the port raise instead of being ignored: fused mode,
-    the plain-XLA integrators and the reference path that volumes which
-    are not 16-aligned take."""
+    """Options outside the port raise instead of being ignored: fused mode
+    and the reference path that volumes which are not 16-aligned take."""
     from rgbd_recon_torch.calibration.rig import RigCalibration
 
     rig = RigCalibration(*(np.asarray(getattr(small_rig["rig"], f))
                            for f in RigCalibration._fields))
     with pytest.raises(NotImplementedError):
         FramePipeline(rig, PipelineConfig(**change), device="cpu")
+
+
+@pytest.mark.parametrize("res, use_pallas, kernel_tiers", [
+    ((48, 48, 48), None, False), ((128, 64, 64), None, False),
+    ((48, 48, 48), True, True), ((128, 128, 128), False, False),
+])
+def test_pipeline_integrator_gate(small_rig, res, use_pallas, kernel_tiers):
+    """The JAX pipeline's gate (rgbd_recon_tpu/runtime/pipeline.py:444-449):
+    use_pallas=None takes the kernel tiers (here the affine bake) only with
+    8 or more bricks on every axis, else the XLA table integrator with the
+    dense tables and the square windows of tsdf_fast.win_offsets; an
+    explicit use_pallas wins at any size."""
+    from rgbd_recon_torch.calibration.rig import RigCalibration
+    from rgbd_recon_torch.ops import tsdf_fast
+
+    rig = RigCalibration(*(np.asarray(getattr(small_rig["rig"], f))
+                           for f in RigCalibration._fields))
+    cfg = PipelineConfig(render_width=64, render_height=48, tsdf_res=res,
+                         voxel_size=float(np.max(small_rig["bbox"].size) / res[0]),
+                         use_pallas=use_pallas)
+    pipe = FramePipeline(rig, cfg, device="cpu")
+    assert pipe._use_pallas() is kernel_tiers
+    assert (pipe.affine is not None) is kernel_tiers and (pipe.tables is None) is kernel_tiers
+    pipe._session(212, 256)
+    if not kernel_tiers:
+        assert torch.equal(pipe._win_off, tsdf_fast.win_offsets(pipe.tables, 212, 256, 64))

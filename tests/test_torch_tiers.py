@@ -235,7 +235,9 @@ def test_table_slice_matches_jax(ref):
 def test_block_major_slice_matches_jax(ref):
     """The whole slice on a 96^3 volume (the block-major tier: depth-band
     cull, then kernel 6 with every sensor FULL) vs the JAX chain, at the
-    render-parity bounds of tests/test_golden.py:65-69."""
+    render-parity bounds of tests/test_golden.py:65-69. A volume of 6
+    bricks an axis takes this tier with use_pallas=True (the gate's
+    default there is the XLA table integrator)."""
     cfg = JTsdfConfig((N_BLOCK,) * 3, LIMIT)
     wy, _ = jaff.auto_window_rows(ref.aff, 212)
     win_off = jaff.win_offsets_affine(ref.aff, 212, 256, wy, WX2, XSTRIDE2)
@@ -248,6 +250,7 @@ def test_block_major_slice_matches_jax(ref):
     out, filled = _jax_render(ref, vol, cvol, m2, N_BLOCK)
     pipe, _ = _slice_parity(ref, PipelineConfig(
         render_width=RW, render_height=RH, tsdf_res=(N_BLOCK,) * 3,
-        voxel_size=float(np.max(ref.bbox.size) / N_BLOCK), sweep_res=SWEEP), out, filled)
+        voxel_size=float(np.max(ref.bbox.size) / N_BLOCK), sweep_res=SWEEP, use_pallas=True),
+        out, filled)
     assert pipe.affine is not None and not pipe._dense_emit
     assert (pipe._wx, pipe._xstride) == (WX2, XSTRIDE2)
