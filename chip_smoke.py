@@ -81,7 +81,28 @@ a result line):
               (3 sensors at 256x212, 320x240) every strategy (points in shade
               modes 0-3, trigrid, mvt, calibs, integration) on the card
               against itself on the CPU at the render-parity bounds, with the
-              pixels that differ counted.
+              pixels that differ counted;
+11. reference the reference path (``fast_path`` or bricking off, unaligned
+              volumes: voxel mask, dense integrators, per-ray marcher):
+              (a) ``rgbd_recon_torch.app.main`` replays phase 9's scene with
+              ``bricking: false`` (res 200x221x200 at align 1) for 4 frames,
+              then POSTs to its control channel turn bricking on (208x224x208,
+              the block-major integrator) and off again, 2 frames after each:
+              each toggle logged with its res, every frame finite with
+              coverage > 0, kernels 2 and 3 (and no brick marking or
+              integrator kernel) launched with bricking off, kernels 2, 3, 4
+              and 6 with it on; the stage means of its ``mean_ref,*.csv``;
+              (b) ``fast_path=False`` at 256^3 on phase 3's rig and frames, 2
+              frames through ``step_timed`` (kernels 2, 3 and 4 launched, stage
+              means, hit fraction), and the brick skip's mean samples a ray
+              against the same frame with ``skip_space=False``; (c) phase 8's
+              small frame through the reference path on the card and on the
+              CPU: the render-parity bounds and the TSDF at the integrator
+              bound; (d) golden parity: phase 3's production volume (kernel
+              1's bf16 z-major output) rendered by the oracle marcher and by
+              the sweep at the four views of ``scripts/golden_parity.py`` at
+              1280x720, every view at the render-parity bounds of
+              tests/test_golden.py:65-69, each renderer's time printed.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -542,7 +563,7 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
     from rgbd_recon_torch.ops.tsdf_fast import pack_frames
     from rgbd_recon_torch.runtime import pipeline as pl
     from rgbd_recon_torch.utils.math import perspective
-    from rgbd_recon_torch.utils.metrics import render_parity
+    from rgbd_recon_torch.utils.metrics import render_parity, render_parity_passes
     from rgbd_recon_torch.utils.navigator import CameraNavigator
     from rgbd_recon_torch.utils.timers import TimerDatabase
 
@@ -697,9 +718,7 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
         h = types.SimpleNamespace(color=cc, depth=cd, hit=hit(cc, cd))
         st = render_parity(h, g)
         differ = int(((g.hit != h.hit) | (np.abs(gc - cc).max(-1) > 1e-3)).sum())
-        ok = (st["hit_agreement"] > 0.995 and st["psnr_rgb"] > 30.0 and st["ssim_rgb"] > 0.95
-              and st["depth_err_med"] < 2e-3 and st["depth_err_p99"] < 2e-2
-              and st["hit_frac"] > 0.02)
+        ok = render_parity_passes(st) and st["hit_frac"] > 0.02
         print(f"models parity {name} cuda vs cpu: hit agreement {st['hit_agreement']:.5f}, "
               f"psnr {st['psnr_rgb']:.2f} dB, ssim {st['ssim_rgb']:.5f}, depth err median "
               f"{st['depth_err_med']:.2e} p99 {st['depth_err_p99']:.2e}, coverage "
@@ -707,6 +726,189 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
               f"{'' if ok else ' FAIL'}")
         if not ok:
             raise RuntimeError(f"models: {name} on the card disagrees with the CPU")
+
+
+REF_CONF = APP_CONF + "bricking: false\n"
+REF_TOGGLES = {4: {"bricking": True}, 6: {"bricking": False}}   # before frame n
+REF_FRAMES = 8
+REF_BENCH_FRAMES = 2
+
+
+def _launches():
+    from rgbd_recon_torch import native
+
+    return {name: k.launches for name, k in native.KERNELS.items()}
+
+
+def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
+                     drive) -> None:
+    """Phase 11 (module docstring): the reference path. ``rig``/``frames``:
+    phase 3's; ``golden``: phase 3's production volume; ``work``: phase 9's
+    scene; ``drive``: main()'s path runner."""
+    import json as _json
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from rgbd_recon_torch import app as app_mod
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.scripts import golden_parity
+    from rgbd_recon_torch.utils.metrics import render_parity, render_parity_passes
+    from rgbd_recon_torch.utils.timers import TimerDatabase
+
+    dev = torch.device("cuda")
+
+    # (a) the app with bricking off, then on and off over the control channel
+    ks, rec = os.path.join(work, "scene.ks"), os.path.join(work, "recordings")
+    conf = os.path.join(work, "ref.conf")
+    with open(conf, "w") as f:
+        f.write(REF_CONF)
+    for k in native.KERNELS.values():
+        k.launches = 0
+    TimerDatabase.instance().reset()
+    snaps, shots = [], []
+    frame_step = app_mod.KinectClientApp.frame_step
+
+    def step(self):
+        cmd = REF_TOGGLES.get(self._frames_done)
+        if cmd is not None:
+            req = urllib.request.Request(f"http://127.0.0.1:{self.viewer.port}/control",
+                                         data=_json.dumps(cmd).encode(), method="POST")
+            if not _json.load(urllib.request.urlopen(req, timeout=30))["ok"]:
+                raise RuntimeError(f"the control channel refused {cmd}")
+        t = time.perf_counter()
+        rgba = frame_step(self)        # applies the command, then draws (synced: timed)
+        if rgba is not None:
+            shots.append((bool(torch.isfinite(rgba).all()),
+                          float((rgba[..., 3] > 0).float().mean()), time.perf_counter() - t))
+            snaps.append(_launches())
+        return rgba
+
+    tee = _Tee(sys.stdout)
+    saved = os.environ.get("RGBD_TIMED_EVERY")
+    os.environ["RGBD_TIMED_EVERY"] = "1"
+    app_mod.KinectClientApp.frame_step = step
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = app_mod.main([ks, conf, "-recordings", rec, "-outdir",
+                               os.path.join(work, "frames_ref"), "-serve", "0",
+                               "-frames", str(REF_FRAMES)])
+    finally:
+        app_mod.KinectClientApp.frame_step = frame_step
+        if saved is None:
+            os.environ.pop("RGBD_TIMED_EVERY")
+        else:
+            os.environ["RGBD_TIMED_EVERY"] = saved
+    print(f"reference (a): app main() exit {rc} after {len(shots)} frames, "
+          f"{time.perf_counter() - t0:.1f} s (host clock, scene load and bakes included)")
+    log = "".join(tee.text).splitlines()
+    start = [ln for ln in log if "volume res (200, 221, 200) at voxel_size 0.01" in ln]
+    toggles = [ln.split("] ", 1)[-1] for ln in log if "control: bricking" in ln]
+    print(f"reference (a): start-up {start[:1]}; toggles {toggles}")
+    want = ["control: bricking on: volume res (208, 224, 208) (brick-sparse path)",
+            "control: bricking off: volume res (200, 221, 200) (reference path)"]
+    if rc != 0 or len(shots) != REF_FRAMES or not start or \
+            [t[-len(w):] for t, w in zip(toggles, want)] != want or len(toggles) != 2:
+        raise RuntimeError(f"the app's bricking toggles: exit {rc}, {len(shots)} frames, "
+                           f"{toggles}")
+    if any("refused" in ln for ln in log):
+        raise RuntimeError("the app refused a command")
+    print("reference (a): frames (finite, coverage, host ms of frame_step incl. its sync): "
+          + ", ".join(f"{'ok' if fin else 'NaN'} {cov:.4f} {sec * 1e3:.1f}"
+                      for fin, cov, sec in shots))
+    if not all(fin and cov > 0 for fin, cov, _ in shots):
+        raise RuntimeError("reference (a): a frame is not finite or empty")
+    zero = dict.fromkeys(snaps[0], 0)
+    segs = {"off": (0, 4), "on": (4, 6), "off again": (6, 8)}
+    for seg, (i, j) in segs.items():
+        a, b = (snaps[i - 1] if i else zero), snaps[j - 1]
+        d = {k: b[k] - a[k] for k in b if b[k] - a[k]}
+        sec = [x[2] for x in shots[i:j]]
+        print(f"reference (a): bricking {seg}: launches over its {j - i} frames {d}; frame_step "
+              f"host ms {', '.join(f'{x * 1e3:.1f}' for x in sec)} ({card})")
+        need = (("warp_screen", "bilateral_accum", "mark_bricks", "integrate_affine")
+                if seg == "on" else ("warp_screen", "bilateral_accum"))
+        absent = () if seg == "on" else ("mark_bricks", "integrate_affine")
+        if any(k not in d for k in need) or any(k in d for k in absent):
+            raise RuntimeError(f"reference (a): bricking {seg} launched {d}")
+    found = glob.glob(os.path.join(work, "mean_ref,*.csv"))
+    if len(found) != 1:
+        raise RuntimeError(f"the app wrote {len(found)} mean_ref,*.csv files")
+    with open(found[0]) as f:
+        header, values = f.read().splitlines()
+    names = [n.strip('"') for n in header.split(",")[1:]]
+    print(f"reference (a): {os.path.basename(found[0])} stage means in ms over its "
+          f"{REF_FRAMES} timed frames (off, on, off; CUDA events; draw: host clock; {card}): "
+          + ", ".join(f"{n} {float(v):.3f}" for n, v in zip(names, values.split(",")[1:])))
+
+    # (b) fast_path=False at the bench config: phase 3's rig and frames
+    rcfg = pl.PipelineConfig(render_width=1280, render_height=720, tsdf_res=(256,) * 3,
+                             voxel_size=float(np.max(bbox.size) / 256), brick_size=0.1,
+                             num_lods=6, fast_path=False)
+    pipe = pl.FramePipeline(rig, rcfg, device=dev, log=lambda s: print(f"  {s}"))
+    if pipe.use_fast:
+        raise RuntimeError("fast_path=False did not take the reference path")
+    pipe.step(*frames[0], mv, proj)       # session bakes
+    outs = drive("reference 256^3", pipe, frames, mv, proj,
+                 ("warp_screen", "bilateral_accum", "mark_bricks"), REF_BENCH_FRAMES,
+                 rcfg.tsdf_res)
+    skip = float(outs[0].num_samples.float().mean())
+    pipe._configure(rcfg._replace(skip_space=False), keep_warp_bake=True)
+    noskip = pipe.step(*frames[0], mv, proj)
+    full = float(noskip.num_samples.float().mean())
+    hit = float(outs[0].hit.float().mean())
+    print(f"reference 256^3: hit fraction {hit:.4f}; mean samples a ray {skip:.2f} with the "
+          f"brick skip, {full:.2f} without (same frame, {full / max(skip, 1e-9):.1f}x), hit "
+          f"fraction without {float(noskip.hit.float().mean()):.4f}")
+    if not skip < full:
+        raise RuntimeError("the brick skip did not shorten the march")
+    del pipe, outs, noskip
+
+    # (c) card against CPU: phase 8's small frame through the reference path
+    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                         frames=1)
+    scfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
+                             voxel_size=float(np.max(sbbox.size) / 128), sweep_res=(256, 256),
+                             fast_path=False)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        p = pl.FramePipeline(srig, scfg, device=d)
+        smv, sproj = p.default_camera()
+        o = p.step(*sframes[0], smv, sproj)
+        res[d.type] = types.SimpleNamespace(color=o.color.cpu().numpy(),
+                                            depth=o.depth.cpu().numpy(),
+                                            hit=o.hit.cpu().numpy(), tsdf=o.tsdf.cpu())
+    g, c = res["cuda"], res["cpu"]
+    st = render_parity(c, g)
+    dv = (g.tsdf - c.tsdf).abs()
+    off = float((dv > 1e-4).float().mean())
+    occ, cocc = int((g.tsdf > -0.01 + 1e-9).sum()), int((c.tsdf > -0.01 + 1e-9).sum())
+    ok = (render_parity_passes(st) and st["hit_frac"] > 0.02 and off < 1e-4
+          and abs(occ - cocc) <= max(100, 0.002 * cocc) and cocc > 1000)
+    print(f"reference (c) cuda vs cpu at 128^3, 320x240: hit agreement "
+          f"{st['hit_agreement']:.5f}, psnr {st['psnr_rgb']:.2f} dB, ssim {st['ssim_rgb']:.5f}, "
+          f"depth err median {st['depth_err_med']:.2e} p99 {st['depth_err_p99']:.2e} max "
+          f"{st['depth_err_max']:.2e}, max color dev {np.abs(g.color - c.color).max():.3e}, "
+          f"coverage {st['hit_frac']:.4f}; tsdf max dev {float(dv.max()):.3e}, voxels off "
+          f">1e-4 {off:.2e}, occupied {occ} vs {cocc} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("reference (c): the card disagrees with the CPU")
+    del res, g, c, p, o
+
+    # (d) golden parity: the oracle and the sweep on phase 3's production
+    # volume at the four views of scripts/golden_parity.py, 1280x720
+    rows = golden_parity.renderer_parity(
+        golden["vol"], golden["cvol"], bbox, golden["limit"], proj, 1280, 720,
+        golden["sweep_res"], golden["zmajor"], log=lambda s: None)
+    print(f"reference (d): golden parity, oracle marcher vs sweep on the 256^3 production "
+          f"volume (bf16, z-major), 1280x720; seconds are host clock to a synchronised "
+          f"result ({card}):")
+    print(golden_parity.table(rows))
+    bad = [r["view"] for r in rows if not render_parity_passes(r)]
+    if bad:
+        raise RuntimeError(f"reference (d): views outside the render-parity bounds: {bad}")
 
 
 def main() -> int:
@@ -840,6 +1042,7 @@ def main() -> int:
             assert cov > 0.0, f"{label}: render coverage is 0"
         print(f"{label}: outputs: occupied bricks {n_occ} / {pipe.max_bricks}, coverage "
               f"{cov:.4f}, occupied ratio {float(outs[-1].occupied_ratio):.4f}")
+        return outs
 
     def check_integrator(name, source, replaces, run_kernel, run_plain, limit, reps, nbytes,
                          ops):
@@ -991,6 +1194,11 @@ def main() -> int:
               (rmf, "warp_screen", lambda a, kw: ws_entry["screen"])]})
     if "--profile" in sys.argv[1:]:
         _profile_frame(pipe, frames[1], mv, proj, card)
+    # phase 11 (d) renders this path's production volume of the first frame
+    pre = pipe._pre(*pipe._sensor_inputs(*frames[0]))
+    golden = dict(zip(("vol", "cvol"), pipe._integrate(pre)), sweep_res=pipe._sweep_res(),
+                  zmajor=pipe._dense_emit, limit=float(pipe.tsdf_cfg.limit))
+    del pre
     del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls
 
     # -- 4. distorted rig, 256^3 (the piecewise warp, kernel 5) --------------
@@ -1243,6 +1451,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="rgbd_app_") as work:
         _app_phase(rig, frames, card, work)
         _models_phase(rig, frames, card, work, check_integrator, integrator_work, launches)
+        _reference_phase(rig, bbox, frames, golden, mv, proj, card, work, drive)
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -30,9 +30,9 @@ trigrid, mvt) draw with the strategies of ``models/`` from the frames of
 alone), and a control command or a stereo feedback message switches among
 modes 0-3 mid-run. ``-draw-bricks`` overlays the occupied bricks (brick
 marking on the frame, kernel 4 on the card) in modes other than
-integration, as in the reference. What the port does not run is refused,
-not ignored: ``bricking: false`` raises at start-up (the pipeline has only
-the brick-sparse path) and is refused as a command. The JAX app's
+integration, as in the reference. ``bricking: false`` (in the ``.conf`` or
+as a control command) runs the pipeline's reference path at the res
+derived at align 1; a bricking toggle logs the res it derives. The JAX app's
 ``_enable_compile_cache`` (XLA's persistent compile cache) has no
 counterpart: the CUDA kernels are built once per source hash by
 ``native.build``.
@@ -385,9 +385,6 @@ class KinectClientApp:
             elif k == "min_voxels_per_brick":
                 if int(v) != self.pipeline.cfg.min_voxels_per_brick:
                     retune[k] = int(v)
-            elif k == "bricking" and not self._as_bool(v):
-                self.log("control: bricking off refused (the torch port has only "
-                         "the brick-sparse path)")
             elif k in self._PIPE_FLAGS:
                 field = self._PIPE_FLAGS[k]
                 val = int(v) if k == "shade_mode" else self._as_bool(v)
@@ -420,6 +417,11 @@ class KinectClientApp:
             self.log(f"control: pipeline flags {pipe_updates}")
             self.pipeline._configure(self.pipeline.cfg._replace(**pipe_updates),
                                      keep_warp_bake=True)
+            if "use_bricks" in pipe_updates:
+                p = self.pipeline
+                self.log(f"control: bricking {'on' if p.cfg.use_bricks else 'off'}: volume "
+                         f"res {p.tsdf_cfg.res} ({'brick-sparse' if p.use_fast else 'reference'}"
+                         " path)")
 
     def _control_state(self) -> dict:
         cfg = self.cfg

@@ -89,16 +89,19 @@ def load_rig(calib_files: Sequence[str], bbox: Bbox,
 
 class DeviceRig(NamedTuple):
     """The rig fields the per-frame stages read, as tensors on the
-    pipeline's device. The forward cv volumes come along only for the
-    gather tier (no pixel warp baked); otherwise only the session bakes
-    read them, on the host copy."""
+    pipeline's device. The cv volumes come along only for the stages that
+    sample them per frame: the gather tier (no pixel warp baked) and the
+    reference path (the dense integrators and the per-ray marcher's exact
+    color blend); otherwise only the session bakes read them, on the host
+    copy."""
 
     depth_limits: torch.Tensor      # f32[K, 2]
     camera_positions: torch.Tensor  # f32[K, 3]
     bbox_min: torch.Tensor          # f32[3]
     bbox_max: torch.Tensor          # f32[3]
-    cv_xyz: torch.Tensor | None = None   # f32[K, Dz, Dy, Dx, 3]
-    cv_uv: torch.Tensor | None = None    # f32[K, Dz, Dy, Dx, 2]
+    cv_xyz: torch.Tensor | None = None       # f32[K, Dz, Dy, Dx, 3]
+    cv_uv: torch.Tensor | None = None        # f32[K, Dz, Dy, Dx, 2]
+    cv_xyz_inv: torch.Tensor | None = None   # f32[K, Vz, Vy, Vx, 3]
 
     @property
     def num_sensors(self) -> int:
@@ -106,10 +109,11 @@ class DeviceRig(NamedTuple):
 
 
 def device_rig(rig: RigCalibration, device, volumes: bool = False) -> DeviceRig:
-    """``volumes``: also carry cv_xyz / cv_uv (the gather tier)."""
+    """``volumes``: also carry cv_xyz, cv_uv and cv_xyz_inv."""
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
-    vols = (t(rig.cv_xyz), t(rig.cv_uv)) if volumes else (None, None)
+    vols = ((t(rig.cv_xyz), t(rig.cv_uv), t(rig.cv_xyz_inv)) if volumes
+            else (None, None, None))
     return DeviceRig(t(rig.depth_limits), t(rig.camera_positions),
                      t(rig.bbox_min), t(rig.bbox_max), *vols)

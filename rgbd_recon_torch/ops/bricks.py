@@ -118,6 +118,23 @@ def _axis_brick_index(grid: BrickGrid, n_vox: int, axis: int) -> np.ndarray:
     )
 
 
+def voxel_occupancy(mask: torch.Tensor, grid: BrickGrid,
+                    vol_res: tuple[int, int, int]) -> torch.Tensor:
+    """Expand the brick mask to per-voxel bool[Vz, Vy, Vx]: voxel centers
+    that fall in an occupied brick (the reference's per-occupied-brick
+    VolumeSampler draws, recon_integration.cpp:254-259). vol_res is (vx,
+    vy, vz). An index gather of each axis's brick index; the JAX package
+    writes the same nearest upsample as three one-hot matmuls, a TPU
+    layout."""
+    vx, vy, vz = vol_res
+
+    def index(n_vox, axis):
+        return torch.as_tensor(_axis_brick_index(grid, n_vox, axis), dtype=torch.int64,
+                               device=mask.device)
+
+    return mask[index(vz, 2)][:, index(vy, 1)][:, :, index(vx, 0)]
+
+
 def block_occupancy(mask: torch.Tensor, grid: BrickGrid,
                     vol_res: tuple[int, int, int], block: int = 16) -> torch.Tensor:
     """Brick-grid -> voxel-block mask: block (i, j, k) of ``block``^3 voxels

@@ -1,9 +1,10 @@
 """GL-exact texture sampling on torch tensors (mirrors
-``rgbd_recon_tpu/ops/sample.py``; the LINEAR samplers are ported).
+``rgbd_recon_tpu/ops/sample.py``).
 
 * texel ``i`` has its center at normalized coordinate ``(i + 0.5) / N``
 * LINEAR: ``c = t*N - 0.5`` clamped to ``[0, N-1]``, lerp between
   ``floor(c)`` and ``floor(c)+1``
+* NEAREST: ``i = floor(t*N)`` clamped to ``[0, N-1]``
 """
 from __future__ import annotations
 
@@ -19,11 +20,22 @@ def _linear_prep(t: torch.Tensor, n: int):
     return i0, i1, f
 
 
-def sample2d(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """LINEAR-sample ``img [H, W, C]`` at texcoords ``uv [..., 2]`` -> ``[..., C]``."""
+def _nearest_index(t: torch.Tensor, n: int) -> torch.Tensor:
+    """floor(t*N) clamped to [0, N-1]. The clamp runs on the float, before
+    the cast, with NaN -> 0: XLA's saturating float -> int conversion
+    (torch's cast of a NaN or an out-of-range float is undefined)."""
+    i = torch.nan_to_num(torch.floor(t * n), nan=0.0)
+    return torch.clamp(i, 0.0, float(n - 1)).to(torch.int64)
+
+
+def sample2d(img: torch.Tensor, uv: torch.Tensor, method: str = "linear") -> torch.Tensor:
+    """Sample ``img [H, W, C]`` at texcoords ``uv [..., 2]`` -> ``[..., C]``
+    (``method``: "linear" or "nearest")."""
     h, w = img.shape[0], img.shape[1]
     flat = img.reshape(h * w, -1)
     s, t = uv[..., 0], uv[..., 1]
+    if method == "nearest":
+        return flat[_nearest_index(t, h) * w + _nearest_index(s, w)]
     x0, x1, fx = _linear_prep(s, w)
     y0, y1, fy = _linear_prep(t, h)
     v00 = flat[y0 * w + x0]
@@ -37,11 +49,17 @@ def sample2d(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return top * (1.0 - fy) + bot * fy
 
 
-def sample3d(vol: torch.Tensor, str_: torch.Tensor) -> torch.Tensor:
-    """LINEAR-sample ``vol [D, H, W, C]`` at texcoords ``str_ [..., 3]`` in GL
-    order (s along W, t along H, r along D) -> ``[..., C]``."""
+def sample3d(vol: torch.Tensor, str_: torch.Tensor, method: str = "linear") -> torch.Tensor:
+    """Sample ``vol [D, H, W, C]`` at texcoords ``str_ [..., 3]`` in GL
+    order (s along W, t along H, r along D) -> ``[..., C]`` (``method``:
+    "linear" or "nearest")."""
     d, h, w = vol.shape[0], vol.shape[1], vol.shape[2]
     flat = vol.reshape(d * h * w, -1)
+    if method == "nearest":
+        x = _nearest_index(str_[..., 0], w)
+        y = _nearest_index(str_[..., 1], h)
+        z = _nearest_index(str_[..., 2], d)
+        return flat[(z * h + y) * w + x]
     x0, x1, fx = _linear_prep(str_[..., 0], w)
     y0, y1, fy = _linear_prep(str_[..., 1], h)
     z0, z1, fz = _linear_prep(str_[..., 2], d)

@@ -1,13 +1,33 @@
-"""TSDF volume configuration (mirrors ``rgbd_recon_tpu/ops/tsdf.py``; the
-dense reference integrators ``integrate``/``integrate_colors`` are not
-ported yet)."""
+"""TSDF volume configuration and the dense reference integrators (mirrors
+``rgbd_recon_tpu/ops/tsdf.py``).
+
+``integrate`` and ``integrate_colors`` update every voxel of the
+``[Vz, Vy, Vx]`` grid (the reference's per-voxel integration pass,
+glsl/tsdf_integration.vs:23-59 + recon_integration.cpp:242-269), with the
+JAX module's per-sensor order of float32 updates. Sampling parity
+(NetKinectArray.cpp:181-188):
+
+  cv_xyz_inv  trilinear (GL_LINEAR 3D texture)
+  silhouette  bilinear
+  depth       NEAREST (m_textures_depth_b is GL_NEAREST)
+  quality     bilinear
+
+Every update is per voxel, so the volume is fused in z-slabs of about
+``SLAB_VOXELS`` voxels: the sampling temporaries stay bounded (a 256^3
+volume at once would hold ~3 GB of them) and the result is the same.
+"""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..utils.math import Bbox
+from .raymarch import blend_colors_exact
+from .sample import sample2d, sample3d
+
+SLAB_VOXELS = 1 << 22
 
 
 class TsdfConfig(NamedTuple):
@@ -28,3 +48,94 @@ class TsdfConfig(NamedTuple):
             for s in bbox.size
         )
         return TsdfConfig(res, limit)
+
+
+def _axis_centers(n: int) -> np.ndarray:
+    """(i + 0.5) / n in float32, each operation rounded as JAX rounds it."""
+    return (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+
+
+def voxel_centers_normalized(res: tuple[int, int, int], device=None,
+                             z_range: tuple[int, int] | None = None) -> torch.Tensor:
+    """Normalized voxel-center grid f32[Vz, Vy, Vx, 3] in GL (s, t, r)
+    order (volume_sampler.cpp:20 feeds voxel centers; ``ivec3(position *
+    res)`` recovers the index, tsdf_integration.vs:57). ``z_range``: only
+    the slices [z0, z1)."""
+    vx, vy, vz = res
+    z0, z1 = z_range or (0, vz)
+    xs, ys, zs = (torch.as_tensor(a, device=device) for a in
+                  (_axis_centers(vx), _axis_centers(vy), _axis_centers(vz)[z0:z1]))
+    zz, yy, xx = torch.meshgrid(zs, ys, xs, indexing="ij")
+    return torch.stack([xx, yy, zz], dim=-1)
+
+
+def _slabs(res: tuple[int, int, int], device):
+    """(z0, z1, voxel centers of slices z0..z1) over the volume."""
+    vx, vy, vz = res
+    nz = max(1, min(vz, SLAB_VOXELS // (vx * vy)))
+    for z0 in range(0, vz, nz):
+        z1 = min(vz, z0 + nz)
+        yield z0, z1, voxel_centers_normalized(res, device, (z0, z1))
+
+
+def integrate(frames, rig, cfg: TsdfConfig,
+              voxel_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Fuse all sensors into a TSDF volume f32[Vz, Vy, Vx]. ``rig``: a
+    DeviceRig carrying ``cv_xyz_inv``. ``voxel_mask`` (bool[Vz, Vy, Vx],
+    from ops/bricks.voxel_occupancy) limits the update to occupied bricks;
+    unmasked voxels keep the clear value ``-limit``
+    (recon_integration.cpp:249-250)."""
+    limit = float(np.float32(cfg.limit))
+    vx, vy, vz = cfg.res
+    dev = frames.depth.device
+    out = torch.empty((vz, vy, vx), dtype=torch.float32, device=dev)
+    for z0, z1, pos in _slabs(cfg.res, dev):
+        weighted_tsd = torch.full(pos.shape[:-1], limit, dtype=torch.float32, device=dev)
+        total_weight = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=dev)
+        for i in range(rig.num_sensors):
+            pos_calib = sample3d(rig.cv_xyz_inv[i], pos)  # (u, v, d_norm)
+            uv = pos_calib[..., :2]
+            sil = sample2d(frames.silhouette[i][..., None], uv)[..., 0]
+            depth = sample2d(frames.depth[i][..., :1], uv, method="nearest")[..., 0]
+            qual = sample2d(frames.quality[i][..., None], uv)[..., 0]
+            sdist = pos_calib[..., 2] - depth  # tsdf_integration.vs:41
+
+            # silhouette gate (:33-39): with sil < 1 and nothing written
+            # yet, force -limit and skip this sensor (1 - 1e-4: a float
+            # lerp of a constant-1 window may not return exactly 1)
+            skip = (sil < 0.9999) & (weighted_tsd >= limit)
+            forced = torch.where(skip, -limit, weighted_tsd)
+            in_front = sdist <= -limit
+            in_band = (sdist > -limit) & (sdist < limit)
+            new_tw = total_weight + qual
+            pos_tw = new_tw > 0.0
+            accum = torch.where(
+                pos_tw,
+                (weighted_tsd * total_weight + qual * sdist) / torch.where(pos_tw, new_tw, 1.0),
+                weighted_tsd)
+            wt_next = torch.where(in_front, -limit, torch.where(in_band, accum, weighted_tsd))
+            tw_next = torch.where(in_band & pos_tw, new_tw, total_weight)
+            weighted_tsd = torch.where(skip, forced, wt_next)
+            total_weight = torch.where(skip, total_weight, tw_next)
+        out[z0:z1] = weighted_tsd
+    if voxel_mask is not None:
+        out = torch.where(voxel_mask, out, -limit)
+    return out
+
+
+def integrate_colors(frames, rig, cfg: TsdfConfig,
+                     voxel_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-voxel blended color volume f32[Vz, Vy, Vx, 4] (rgb, flag): the
+    raymarch shader's per-sample ``blendColors`` (glsl/tsdf_raymarch.fs:
+    295-330) evaluated at voxel centers. alpha > 0 marks a quality-weighted
+    blend, alpha <= 0 the 1/dist fallback; unmasked voxels are 0."""
+    limit = float(np.float32(cfg.limit))
+    vx, vy, vz = cfg.res
+    dev = frames.depth.device
+    out = torch.empty((vz, vy, vx, 4), dtype=torch.float32, device=dev)
+    for z0, z1, pos in _slabs(cfg.res, dev):
+        out[z0:z1] = blend_colors_exact(frames, rig, pos, limit)
+    if voxel_mask is not None:
+        out = torch.where(voxel_mask[..., None], out, 0.0)
+    return out
+

@@ -146,6 +146,14 @@ def pack_planes(frames) -> tuple[torch.Tensor, torch.Tensor]:
     return a, rgb[..., 1:3].contiguous()
 
 
+def brick16_mask(voxel_mask: torch.Tensor) -> torch.Tensor:
+    """Reduce a per-voxel occupancy mask bool[Vz, Vy, Vx] to 16^3 bricks
+    (any voxel)."""
+    vz, vy, vx = voxel_mask.shape
+    m = voxel_mask.reshape(vz // BRICK, BRICK, vy // BRICK, BRICK, vx // BRICK, BRICK)
+    return m.any(dim=5).any(dim=3).any(dim=1)
+
+
 def occupied_bricks(mask16: torch.Tensor, max_bricks: int):
     """``occupied_list``'s (idx, count) and, from the same cumsum, the
     per-brick slot map slots i32[NB]: brick b's position in ``idx``, -1 for

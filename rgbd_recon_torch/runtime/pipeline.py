@@ -9,7 +9,7 @@ in four stages, named like the reference's TimerDatabase entries:
   3recon       sweep raymarch renderer (screen-warp kernel)
   holefill     inpaint pyramid + colorfill
 
-This is the staged fast path of the JAX pipeline with its gates:
+The staged fast path of the JAX pipeline takes these gates:
 
   pixel warp  affine (residual <= ``warp_tol``) -> piecewise (``warp_knots``
               knots, residual <= ``pw_warp_tol``; kernel 5) -> the exact
@@ -29,14 +29,23 @@ This is the staged fast path of the JAX pipeline with its gates:
 holds here wherever the port's kernels exist: on the card, and through
 their plain versions on the CPU. So a 48^3 volume (``voxel_size`` 0.05)
 integrates as the JAX pipeline integrates it, with the XLA formulation;
-``use_pallas=True`` keeps the kernel tiers at any size.
+``use_pallas=True`` keeps the kernel tiers at any size. Brick marking
+is kernel 4 at every volume size.
 
-What the port does not implement is rejected in ``_configure``, not
-ignored: fused mode and the reference (non-brick) path (``fast_path`` or
-``use_bricks`` off, volumes that are not 16-aligned). Session bakes run
-lazily at the first frame's sensor size, in torch, on the pipeline's
-``device``; ``preprocess`` runs them and the preprocessing alone (the
-reconstruction strategies of ``models/`` draw from its frames).
+The reference path (JAX ``use_fast`` false: ``fast_path`` or
+``use_bricks`` off, or a volume that is not 16-aligned; the res is derived
+at align 16 only with both on) runs the JAX pipeline's dense oracle
+stages: 1preprocess marks bricks only with ``use_bricks`` and expands the
+mask to voxels (``bricks.voxel_occupancy``; no 16^3 mask, no cull,
+``occupied_bricks`` 0), 2integrate is ``tsdf.integrate`` +
+``integrate_colors`` over every voxel, 3recon the per-ray marcher
+``raymarch.render`` (the coarse brick skip with ``skip_space`` and
+``use_bricks``), all plain PyTorch beside kernels 2 and 3 (and 4 with
+``use_bricks``). Fused mode is rejected in ``_configure``, not ignored.
+Session bakes run lazily at the first frame's sensor size, in torch, on
+the pipeline's ``device``; ``preprocess`` runs them and the preprocessing
+alone (the reconstruction strategies of ``models/`` draw from its
+frames).
 
 Session API (the app's control channel): ``retune`` re-derives only what
 a change invalidates, ``reload`` rebuilds the stages keeping every bake,
@@ -114,6 +123,19 @@ class FrameOutput(NamedTuple):
     occupied_ratio: torch.Tensor  # f32[]
     num_samples: torch.Tensor     # i32[H, W]
     occupied_bricks: torch.Tensor  # i32[] occupied 16^3 blocks this frame
+                                   # (0 on the reference path)
+
+
+class PreOut(NamedTuple):
+    """What 1preprocess hands the later stages."""
+
+    frames: pp.ProcessedFrames
+    mask: torch.Tensor | None      # bool[bz, by, bx] brick occupancy (use_bricks)
+    vox_mask: torch.Tensor | None  # bool[Vz, Vy, Vx] (reference path with bricks)
+    mask16: torch.Tensor | None    # bool[Vz/16, Vy/16, Vx/16] (fast path), culled
+    occupied: torch.Tensor         # f32[] occupied brick ratio
+    n_occ: torch.Tensor            # i32[] occupied 16^3 blocks (0 off the fast path)
+    cls: torch.Tensor | None       # per-(sensor, block) classes of the depth-band cull
 
 
 STAGE_TIMERS = ("1preprocess", "2integrate", "3recon", "holefill")
@@ -149,30 +171,26 @@ class FramePipeline:
         """(Re)build everything derived from the static config. With
         ``keep_warp_bake`` the voxel->sensor bake (affine coefficients or
         warp table) and the session bakes of the sensor size (pixel warp,
-        device rig, windows) survive — valid only while the volume res and
-        the rig are unchanged; the depth-band cull bake, which reads the
-        TSDF limit, is re-derived at the next frame."""
-        unsupported = {
-            "fused": cfg.fused,
-            "fast_path=False": not cfg.fast_path,
-            "use_bricks=False": not cfg.use_bricks,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"not implemented in the torch port yet: {', '.join(bad)}")
+        device rig, windows) survive as long as they fit the new config:
+        the integrator bake is redone when the volume res changed (a
+        bricking toggle moves the res between align 16 and 1) or when the
+        fast path turns on with no bake held. The depth-band cull bake,
+        which reads the TSDF limit, is re-derived at the next frame."""
+        if cfg.fused:
+            raise NotImplementedError("not implemented in the torch port yet: fused")
         if cfg.tsdf_res is not None:
             tsdf_cfg = tsdf_ops.TsdfConfig(cfg.tsdf_res, cfg.tsdf_limit)
         else:
+            # align 16 keeps voxel-size-driven configs on the brick-sparse
+            # path (padded up to whole 16^3 bricks, never truncated)
             tsdf_cfg = tsdf_ops.TsdfConfig.from_voxel_size(
-                self.bbox, cfg.voxel_size, cfg.tsdf_limit, align=BRICK)
+                self.bbox, cfg.voxel_size, cfg.tsdf_limit,
+                align=BRICK if (cfg.fast_path and cfg.use_bricks) else 1)
         vx, vy, vz = tsdf_cfg.res
-        if vx % BRICK or vy % BRICK or vz % BRICK:
-            raise NotImplementedError(
-                f"volume res {tsdf_cfg.res}: the torch port needs a "
-                "16-aligned res (the brick-sparse path)")
         self.cfg = cfg
         self.tsdf_cfg = tsdf_cfg
+        self.use_fast = bool(cfg.fast_path and cfg.use_bricks
+                             and not (vx % BRICK or vy % BRICK or vz % BRICK))
         self.brick_grid = brick_ops.make_brick_grid(
             self.bbox, cfg.brick_size, cfg.voxel_size)
         self.pre_cfg = pp.PreprocessConfig(
@@ -180,16 +198,29 @@ class FramePipeline:
             use_processed_depth=cfg.use_processed_depth,
             refine_boundary=cfg.refine_boundary,
         )
-        nb_total = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
+        nb_total = (vx // BRICK) * (vy // BRICK) * (vz // BRICK) if self.use_fast else 0
         if cfg.max_bricks is not None:
-            self.max_bricks = min(cfg.max_bricks, nb_total)
+            self.max_bricks = min(cfg.max_bricks, nb_total) if nb_total else cfg.max_bricks
         else:
-            self.max_bricks = min(nb_total, max(1024, nb_total // 4))
+            self.max_bricks = min(nb_total, max(1024, nb_total // 4)) if nb_total else 0
         self._cull_bake = None
-        if keep_warp_bake:
-            return
+        if not keep_warp_bake:
+            self.affine = self.tables = None
+            self._bake_key = None
+            self._sensor_hw = None      # the session bakes redo at the next frame
+        key = (tsdf_cfg.res, self._use_pallas(), cfg.use_affine, cfg.affine_tol)
+        if self.use_fast and self._bake_key != key:
+            self._bake_integrator()
+            self._bake_key = key
+        # dense emit: whole 128-voxel x-rows and the quadratic warp
+        self._dense_emit = self.use_fast and self.affine is not None and vx % 128 == 0
 
+    def _bake_integrator(self) -> None:
+        """The voxel->sensor bake of the fast path's integrator tier: the
+        per-brick affine warp, else the dense warp table."""
+        cfg = self.cfg
         self.affine = self.tables = None
+        self._win_off = None            # the windows follow the bake
         if self._use_pallas() and cfg.use_affine is not False:
             self._log(f"baking per-brick affine warp at {self.tsdf_cfg.res} ...")
             aff = tsdf_affine.bake_affine(self.rig, self.tsdf_cfg, self.device)
@@ -204,12 +235,6 @@ class FramePipeline:
             self._log(f"baking voxel->sensor warp tables at {self.tsdf_cfg.res} ...")
             self.tables = tsdf_fast.tables_cached(self.rig, self.tsdf_cfg, self.device,
                                                   self._table_cache_dir, self._log)
-        # dense emit: whole 128-voxel x-rows and the quadratic warp
-        self._dense_emit = self.affine is not None and vx % 128 == 0
-        self._sensor_hw = None
-        self._warp = self._drig = None
-        self._win_off = None
-        self._wy = self._wx = self._xstride = None
 
     def _use_pallas(self) -> bool:
         """The integrator tier gate (module docstring): the kernel tiers,
@@ -227,7 +252,8 @@ class FramePipeline:
         340-406,462-472). Rebuilds only what the change invalidates:
         tsdf_limit / min_voxels_per_brick keep the warp bakes and re-derive
         the cull bake; brick_size rebuilds the brick grid; voxel_size
-        re-derives the volume res from the bbox at align=16 (any
+        re-derives the volume res from the bbox as ``_configure`` derives
+        it (align 16 on the brick-sparse path, 1 on the reference path; any
         ``tsdf_res`` override is dropped) and re-bakes the warp."""
         cfg = self.cfg
         updates = {}
@@ -280,8 +306,15 @@ class FramePipeline:
     def _session(self, h: int, w: int) -> None:
         if self._sensor_hw != (h, w):
             self._warp = self._bake_warp(h, w)
-            # the gather tier reads the cv volumes every frame
-            self._drig = device_rig(self.rig, self.device, volumes=self._warp is None)
+            self._sensor_hw = (h, w)
+            self._drig = self._win_off = None
+            self._cull_bake = None
+        # the gather tier and the reference path sample the cv volumes
+        # every frame
+        volumes = self._warp is None or not self.use_fast
+        if self._drig is None or (self._drig.cv_xyz is not None) != volumes:
+            self._drig = device_rig(self.rig, self.device, volumes=volumes)
+        if self.use_fast and self._win_off is None:
             if not self._use_pallas():
                 self._win_off = tsdf_fast.win_offsets(self.tables, h, w,
                                                       self.cfg.sample_window)
@@ -298,9 +331,8 @@ class FramePipeline:
                           f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
                 self._win_off = tsdf_affine.win_offsets_affine(
                     self.affine, h, w, self._wy, self._wx, self._xstride)
-            self._sensor_hw = (h, w)
-            self._cull_bake = None
-        if self._cull_bake is None and self.affine is not None and self.cfg.brick_cull:
+        if (self._cull_bake is None and self.use_fast and self.affine is not None
+                and self.cfg.brick_cull):
             self._cull_bake = tsdf_affine.bake_cull(self.affine, h, w,
                                                     float(self.tsdf_cfg.limit))
 
@@ -315,26 +347,39 @@ class FramePipeline:
 
     # -- stages ------------------------------------------------------------
 
-    def _pre(self, depth_m, color):
-        """1preprocess: filtering, brick occupancy, depth-band cull."""
+    def _pre(self, depth_m, color) -> PreOut:
+        """1preprocess: filtering, brick occupancy; on the fast path the
+        16^3 block mask and the depth-band cull, on the reference path the
+        voxel mask."""
         cfg = self.cfg
         frames = pp.preprocess(depth_m, color, self._drig, self.pre_cfg, self._warp)
-        counts = brick_ops.mark_bricks(frames.world, frames.world_valid,
-                                       self.brick_grid)
-        mask = brick_ops.occupancy_mask(counts, cfg.min_voxels_per_brick)
-        occupied = brick_ops.occupied_ratio(mask)
-        mask16 = brick_ops.block_occupancy(mask, self.brick_grid,
-                                           self.tsdf_cfg.res, BRICK)
-        cls = None
-        if self._cull_bake is not None:
-            mask16, _, cls = tsdf_affine.block_depth_cull_baked(
-                mask16, self._cull_bake, frames.depth[..., 0], frames.quality,
-                frames.silhouette, float(self.tsdf_cfg.limit))
-        n_occ = mask16.sum().to(torch.int32)
-        return frames, mask16, occupied, n_occ, cls
+        mask = vox_mask = mask16 = cls = None
+        occupied = torch.ones((), dtype=torch.float32, device=self.device)
+        n_occ = torch.zeros((), dtype=torch.int32, device=self.device)
+        if cfg.use_bricks:
+            counts = brick_ops.mark_bricks(frames.world, frames.world_valid,
+                                           self.brick_grid)
+            mask = brick_ops.occupancy_mask(counts, cfg.min_voxels_per_brick)
+            occupied = brick_ops.occupied_ratio(mask)
+            if not self.use_fast:
+                vox_mask = brick_ops.voxel_occupancy(mask, self.brick_grid, self.tsdf_cfg.res)
+            else:
+                mask16 = brick_ops.block_occupancy(mask, self.brick_grid,
+                                                   self.tsdf_cfg.res, BRICK)
+                if self._cull_bake is not None:
+                    mask16, _, cls = tsdf_affine.block_depth_cull_baked(
+                        mask16, self._cull_bake, frames.depth[..., 0], frames.quality,
+                        frames.silhouette, float(self.tsdf_cfg.limit))
+                n_occ = mask16.sum().to(torch.int32)
+        return PreOut(frames, mask, vox_mask, mask16, occupied, n_occ, cls)
 
-    def _integrate(self, frames, mask16, cls):
-        """2integrate: fused TSDF + color volumes, by the integrator tier."""
+    def _integrate(self, pre: PreOut):
+        """2integrate: fused TSDF + color volumes, by the integrator tier;
+        on the reference path every voxel, f32 channels-last."""
+        frames, mask16 = pre.frames, pre.mask16
+        if not self.use_fast:
+            return (tsdf_ops.integrate(frames, self._drig, self.tsdf_cfg, pre.vox_mask),
+                    tsdf_ops.integrate_colors(frames, self._drig, self.tsdf_cfg, pre.vox_mask))
         if not self._use_pallas():
             return tsdf_fast.integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
                                               self.max_bricks, self.cfg.sample_window,
@@ -347,17 +392,28 @@ class FramePipeline:
                                     self.max_bricks, self._win_off, self._wy)
         return integrate_dense(
             frames, self.affine, self.tsdf_cfg, mask16, self.max_bricks,
-            self._win_off, self._wy, self._wx, self._xstride, cls)
+            self._win_off, self._wy, self._wx, self._xstride, pre.cls)
 
-    def _render(self, vol, cvol, mask16, mv, proj, axis, flip):
-        """3recon: sweep-composited raymarch."""
+    def _render(self, pre: PreOut, vol, cvol, mv, proj, axis, flip):
+        """3recon: the sweep-composited raymarch, or on the reference path
+        the per-ray marcher."""
         cfg = self.cfg
         cam = rm.RenderCamera(mv, proj, cfg.render_width, cfg.render_height)
-        occ = (rmf.slab_occupancy(mask16, axis, self.tsdf_cfg.res[axis])
+        params = rm.RenderParams(shade_mode=cfg.shade_mode)
+        limit = float(self.tsdf_cfg.limit)
+        if not self.use_fast:
+            grid = self.brick_grid
+            extent = (np.asarray(grid.res, np.float32) * grid.brick_size
+                      / self.bbox.size.astype(np.float32))
+            return rm.render(
+                vol, cvol, pre.frames, self._drig, cam, self.bbox, limit, params,
+                brick_mask=pre.mask if (cfg.skip_space and cfg.use_bricks) else None,
+                brick_size_vol=grid.brick_size / float(np.max(self.bbox.size)),
+                brick_extent=extent)
+        occ = (rmf.slab_occupancy(pre.mask16, axis, self.tsdf_cfg.res[axis])
                if cfg.skip_space else None)
         return rmf.render_fast(
-            vol, cvol, cam, self.bbox, float(self.tsdf_cfg.limit), axis, flip,
-            rm.RenderParams(shade_mode=cfg.shade_mode),
+            vol, cvol, cam, self.bbox, limit, axis, flip, params,
             rmf.SweepConfig(res=self._sweep_res()), occ, zmajor=self._dense_emit)
 
     def _fill(self, color, depth):
@@ -407,7 +463,10 @@ class FramePipeline:
         """``step`` with per-stage times recorded into ``self.timers`` (the
         process-wide ``TimerDatabase``) under the reference's stage names
         (CUDA events on a CUDA device; read with
-        ``self.timers.duration(name)``)."""
+        ``self.timers.duration(name)``). The four stages are timed on the
+        reference path too, where the JAX pipeline runs one program and
+        records it under ``3recon`` alone: the timer CSVs of the two
+        packages differ there."""
         return self._step(depth_m, color, modelview, proj, timed=True)
 
     def warmup(self, depth_m, color, modelview, proj) -> None:
@@ -426,10 +485,11 @@ class FramePipeline:
 
         depth, col, mv, pr, axis, flip = run(
             "session bakes", lambda: self._inputs(depth_m, color, modelview, proj))
-        frames, mask16, _, _, cls = run("1preprocess", lambda: self._pre(depth, col))
-        vol, cvol = run("2integrate", lambda: self._integrate(frames, mask16, cls))
-        out = run(f"3recon (axis={axis} flip={flip})",
-                  lambda: self._render(vol, cvol, mask16, mv, pr, axis, flip))
+        pre = run("1preprocess", lambda: self._pre(depth, col))
+        vol, cvol = run("2integrate", lambda: self._integrate(pre))
+        what = f"axis={axis} flip={flip}" if self.use_fast else "per-ray marcher"
+        out = run(f"3recon ({what})",
+                  lambda: self._render(pre, vol, cvol, mv, pr, axis, flip))
         if self.cfg.fill_holes:
             run("holefill", lambda: self._fill(out.color, out.depth))
 
@@ -451,11 +511,11 @@ class FramePipeline:
                     else contextlib.nullcontext())
 
         with scope("1preprocess"):
-            frames, mask16, occupied, n_occ, cls = self._pre(depth, col)
+            pre = self._pre(depth, col)
         with scope("2integrate"):
-            vol, cvol = self._integrate(frames, mask16, cls)
+            vol, cvol = self._integrate(pre)
         with scope("3recon"):
-            out = self._render(vol, cvol, mask16, mv, pr, axis, flip)
+            out = self._render(pre, vol, cvol, mv, pr, axis, flip)
         color_out = out.color
         if self.cfg.fill_holes:
             with scope("holefill"):
@@ -464,8 +524,8 @@ class FramePipeline:
             self.timers.flush()
         return FrameOutput(
             color=color_out, depth=out.depth, hit=out.hit, tsdf=vol,
-            occupied_ratio=occupied, num_samples=out.num_samples,
-            occupied_bricks=n_occ,
+            occupied_ratio=pre.occupied, num_samples=out.num_samples,
+            occupied_bricks=pre.n_occ,
         )
 
     def check_capacity(self, out: FrameOutput) -> int:
@@ -474,7 +534,7 @@ class FramePipeline:
         sync, like the reference's per-frame count readback,
         recon_integration.cpp:430-445)."""
         n = int(out.occupied_bricks)
-        if n > self.max_bricks:
+        if self.use_fast and n > self.max_bricks:
             raise RuntimeError(
                 f"occupied bricks {n} exceed max_bricks={self.max_bricks}: "
                 f"geometry dropped — raise PipelineConfig.max_bricks "

@@ -66,3 +66,10 @@ def render_parity(ref, fast) -> dict:
         "depth_err_max": float(np.max(dd)),
         "hit_frac": float(np.mean(hit_r)),
     }
+
+
+def render_parity_passes(s: dict) -> bool:
+    """``render_parity`` stats within the render-parity bounds of
+    tests/test_golden.py:65-69 (coverage is the caller's to require)."""
+    return (s["hit_agreement"] > 0.995 and s["psnr_rgb"] > 30.0 and s["ssim_rgb"] > 0.95
+            and s["depth_err_med"] < 2e-3 and s["depth_err_p99"] < 2e-2)

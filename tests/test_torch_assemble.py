@@ -34,6 +34,16 @@ LIMIT = 0.01
 N = 96            # the block-major configuration's volume (Vx % 128 != 0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread: beside the other test workers on the same
+    cores, a pool of 8 spins and a frame's small ops run 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return t.detach().to(torch.float32).cpu().numpy()
 

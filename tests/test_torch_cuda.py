@@ -7,6 +7,8 @@ imports no JAX, so it also runs on a machine that has none:
 
 (``--noconftest`` because tests/conftest.py configures JAX).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -176,8 +178,9 @@ def test_integrate_dense_cuda(dev):
     (tests/test_tsdf_affine.py:109-116)."""
     pipe, depth, color, mv, proj = _small_pipeline(dev)
     d, c, *_ = pipe._inputs(depth, color, mv, proj)
-    frames, mask16, _, _, cls = pipe._pre(d, c)
-    idx, count, slots = occupied_bricks(mask16, pipe.max_bricks)
+    pre = pipe._pre(d, c)
+    frames, cls = pre.frames, pre.cls
+    idx, count, slots = occupied_bricks(pre.mask16, pipe.max_bricks)
     rest = (pipe._win_off, cls, pipe.tsdf_cfg.res, pipe._wy, pipe._wx, pipe._xstride,
             pipe.tsdf_cfg.limit)
     vol, cvol = tsdf_dense.integrate_dense_cuda(pack_planes(frames), pipe.affine.coeffs, idx,
@@ -217,9 +220,9 @@ def test_piecewise_eval_cuda(dev, m, c, h, w):
 
 def _integrator_args(pipe, depth, color, mv, proj):
     d, c, *_ = pipe._inputs(depth, color, mv, proj)
-    frames, mask16, _, _, _ = pipe._pre(d, c)
-    idx, count, slots = occupied_bricks(mask16, pipe.max_bricks)
-    return pack_frames(frames), idx, count, slots, pack_planes(frames)
+    pre = pipe._pre(d, c)
+    idx, count, slots = occupied_bricks(pre.mask16, pipe.max_bricks)
+    return pack_frames(pre.frames), idx, count, slots, pack_planes(pre.frames)
 
 
 def _assert_integrator_bound(vol, cvol, pvol, pcvol):
@@ -563,3 +566,32 @@ def test_frame_monitor_cuda_fence(dev):
             mon.drain()
     finally:
         mon.close()
+
+
+def test_reference_path_cuda(dev):
+    """The reference path (fast_path=False: voxel mask, dense integrators,
+    per-ray marcher with the brick skip) on a 96^3 frame on the card and on
+    the CPU: kernels 2, 3 and 4 launch (kernel 4 under 8 bricks an axis
+    too, where the integrator tier gate is off); the TSDF at the integrator
+    bound (tests/test_tsdf_affine.py:109-116), the frame at the
+    render-parity bounds (tests/test_golden.py:65-69)."""
+    from rgbd_recon_torch.utils.metrics import render_parity, render_parity_passes
+
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        pipe, depth, color, mv, proj = _small_pipeline(d, n=96, fast_path=False)
+        assert not pipe.use_fast and not pipe._use_pallas()
+        before = {k: native.KERNELS[k].launches
+                  for k in ("warp_screen", "bilateral_accum", "mark_bricks")}
+        outs[d.type] = pipe.step(depth, color, mv, proj)
+        if d.type == "cuda":
+            assert all(native.KERNELS[k].launches > n for k, n in before.items())
+    g, c = outs["cuda"], outs["cpu"]
+    v, pv = g.tsdf.cpu(), c.tsdf
+    assert ((v - pv).abs() > 1e-4).float().mean() < 1e-4
+    occ, pocc = int((v > -0.01 + 1e-9).sum()), int((pv > -0.01 + 1e-9).sum())
+    assert pocc > 1000 and abs(occ - pocc) <= max(100, 0.002 * pocc)
+    s = render_parity(*(types.SimpleNamespace(color=o.color.cpu().numpy(),
+                                              depth=o.depth.cpu().numpy(),
+                                              hit=o.hit.cpu().numpy()) for o in (c, g)))
+    assert render_parity_passes(s) and s["hit_frac"] > 0.02, s

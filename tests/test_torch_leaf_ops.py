@@ -20,6 +20,16 @@ from rgbd_recon_torch.ops import colors, inpaint, sample, warp
 from rgbd_recon_torch.utils import math as tmath
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread: beside the other test workers on the same
+    cores, a pool of 8 spins and a frame's small ops run 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rgb_to_lab(rng):
     rgb = rng.random((64, 48, 3)).astype(np.float32)
     return (colors.rgb_to_lab(torch.from_numpy(rgb)).numpy(),

@@ -48,6 +48,16 @@ N = 48            # the voxel size of tests/test_models.py:82-89: bbox / 48
 LIMIT = 0.01
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread: beside the other test workers on the same
+    cores, a pool of 8 spins and a frame's small ops run 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cams(mv, proj, w=W, h=H):
     return (JRenderCamera(jnp.asarray(mv), jnp.asarray(proj), w, h),
             RenderCamera(torch.from_numpy(mv), torch.from_numpy(proj), w, h))

@@ -48,6 +48,16 @@ N_TABLE = 128     # the table configuration's volume
 N_BLOCK = 96      # the block-major configuration's (Vx % 128 != 0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread: beside the other test workers on the same
+    cores, a pool of 8 spins and a frame's small ops run 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return t.detach().to(torch.float32).cpu().numpy()
 
