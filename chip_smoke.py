@@ -102,7 +102,26 @@ a result line):
               1's bf16 z-major output) rendered by the oracle marcher and by
               the sweep at the four views of ``scripts/golden_parity.py`` at
               1280x720, every view at the render-parity bounds of
-              tests/test_golden.py:65-69, each renderer's time printed.
+              tests/test_golden.py:65-69, each renderer's time printed;
+12. fused     fused mode (``PipelineConfig.fused``: one CUDA graph replay a
+              frame) on each of phases 3-6's pipelines after its staged run:
+              one staged frame with the counters at 0, ``fused`` flipped on by
+              assignment, ``warmup`` (the capture, its seconds logged), 2
+              fused frames with the counters at 0 on the staged run's inputs:
+              each bit for bit the staged frame (else the differing fields
+              named with their largest deviation, and the render-parity and
+              integrator bounds required), each kernel of the path launched
+              by every replay as often as by a staged frame. At pinhole 256^3
+              also: the frame medians over 20 step_timed frames staged, fused,
+              staged (host clock, synced; the stage means, fused the whole
+              replay under 3recon), ``rgbd_recon_torch.scripts.trace_fused`` over 3
+              fused frames (kernels 1-4 named in the replays' trace, every
+              replay lined up with the eager frame; the device busy share),
+              the memory reserved staged, with 1 variant and with 6, the orbit
+              (``warm_variants_async`` captures the other 5 variants on its
+              thread; each variant's frame bit for bit the staged frame at its
+              camera). Last, phase 11 (c)'s 128^3 frame on the reference path
+              (one graph), fused against staged.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -911,6 +930,195 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
         raise RuntimeError(f"reference (d): views outside the render-parity bounds: {bad}")
 
 
+FUSED_FRAMES = 2           # fused frames held against the staged frames, each path
+FUSED_BENCH = 20           # fused and staged frames timed at pinhole 256^3
+OUT_FIELDS = ("color", "depth", "hit", "tsdf", "occupied_ratio", "num_samples",
+              "occupied_bricks")
+
+
+def _orbit_camera(pipe, axis: int, flip: bool):
+    """A view whose sweep is (axis, flip): the eye 3 m off the volume center
+    along that axis (a little off-axis, so no tie), looking at the center."""
+    import numpy as np
+    from rgbd_recon_torch.ops import raymarch as rm, raymarch_fast as rmf
+    from rgbd_recon_torch.utils.math import look_at
+
+    center = (pipe.bbox.min + pipe.bbox.max) * 0.5
+    d = np.array([0.25, 0.35, 0.3], np.float32)
+    d[axis] = 3.0 if flip else -3.0
+    mv = look_at(center + d, center, [0, 0, 1] if axis == 1 else [0, 1, 0])
+    if rmf.pick_axis(mv, rm.vol_to_world_matrix(pipe.bbox)) != (axis, flip):
+        raise RuntimeError(f"the orbit camera of {(axis, flip)} picks another sweep")
+    return mv
+
+
+def _same_frame(label: str, got, want) -> None:
+    """Phase 12's comparison: bit for bit on every FrameOutput field. If a
+    field differs, it is named with its largest deviation, and the frame
+    must meet the render-parity bounds and the TSDF the integrator bound
+    (tests/test_golden.py:65-69, tests/test_tsdf_affine.py:109-116)."""
+    import numpy as np
+    import torch
+    from rgbd_recon_torch.utils.metrics import render_parity, render_parity_passes
+
+    diff = {f: float((getattr(got, f).double() - getattr(want, f).double()).abs().max())
+            for f in OUT_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))}
+    if not diff:
+        return
+    host = [types.SimpleNamespace(color=o.color.cpu().numpy(), depth=o.depth.cpu().numpy(),
+                                  hit=o.hit.cpu().numpy()) for o in (want, got)]
+    st = render_parity(*host)
+    v, pv = got.tsdf.float(), want.tsdf.float()
+    off = float(((v - pv).abs() > 1e-4).float().mean())
+    ok = render_parity_passes(st) and off < 1e-4
+    print(f"{label}: fused differs from staged in {sorted(diff)} (max deviation "
+          f"{diff}); render parity {st}, tsdf voxels off >1e-4 {off:.2e} -> "
+          f"{'within the bounds' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label}: the fused frame is outside the bounds of the staged")
+
+
+def _fused_phase(label: str, pipe, frames, mv, proj, staged_outs, need, card: str) -> None:
+    """Phase 12 on one path (module docstring): one staged frame with the
+    counters at 0 (its launches a frame), then ``fused`` flipped on by
+    assignment, ``warmup`` (the capture, seconds logged) and FUSED_FRAMES
+    fused frames with the counters at 0: each bit for bit the staged frame
+    on the same inputs (``staged_outs``), every kernel of ``need`` launched
+    by each replay as often as by the staged frame."""
+    import torch
+    from rgbd_recon_torch import native
+
+    for k in native.KERNELS.values():
+        k.launches = 0
+    pipe.step(*frames[0], mv, proj)
+    torch.cuda.synchronize()
+    per_frame = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+    log = pipe._log
+    pipe.cfg = pipe.cfg._replace(fused=True)
+    pipe.warmup(*frames[0], mv, proj)
+    torch.cuda.synchronize()
+    for k in native.KERNELS.values():
+        k.launches = 0
+    outs = [pipe.step(*frames[i], mv, proj) for i in range(FUSED_FRAMES)]
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+    per_replay = {n: c / FUSED_FRAMES for n, c in counts.items()}
+    print(f"fused {label}: launches in {FUSED_FRAMES} replays {counts} (the staged frame: "
+          f"{per_frame}); captured variants {pipe._graphs.keys()}")
+    missing = [n for n in need if counts.get(n, 0) == 0]
+    if missing or per_replay != per_frame:
+        raise RuntimeError(f"fused {label}: kernels {missing} not launched, or launches a "
+                           f"replay {per_replay} != a staged frame's {per_frame}")
+    for i, o in enumerate(outs):
+        _same_frame(f"fused {label} frame {i}", o, staged_outs[i])
+    log(f"fused {label}: {FUSED_FRAMES} frames bit for bit the staged frames ({card})")
+
+
+def _fused_pinhole(pipe, frames, mv, proj, card: str, work: str, reserved_0: int) -> None:
+    """Phase 12's pinhole extras on phase 3's pipeline, fused and captured:
+    the medians over FUSED_BENCH frames fused and staged, the profiler
+    trace of fused frames (kernels 1-4 named in it, its busy share), the
+    memory reserved with 1 and 6 variants, and the orbit of the 6 variants
+    through warm_variants_async, each bit for bit the staged frame.
+    ``reserved_0``: the memory reserved before the first capture."""
+    import numpy as np
+    import torch
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.scripts import trace_fused
+
+    def median_ms(fused: bool) -> float:
+        """The frame median of FUSED_BENCH step_timed frames (host clock,
+        synced), with the stage timers' means (CUDA events; fused: the
+        whole replay under 3recon)."""
+        pipe.cfg = pipe.cfg._replace(fused=fused)
+        pipe.timers.reset()
+        times = []
+        for i in range(FUSED_BENCH):
+            t0 = time.perf_counter()
+            pipe.step_timed(*frames[i % len(frames)], mv, proj)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = float(np.median(times)) * 1e3
+        timers = pipe.timers.timers     # reset() empties it; a fused frame fills 3recon
+        stages = ", ".join(f"{n} {timers[n].mean * 1e3:.3f} (min {timers[n].vmin * 1e3:.3f})"
+                           for n in pl.STAGE_TIMERS if n in timers)
+        print(f"fused pinhole 256^3: {'fused' if fused else 'staged'} frame median "
+              f"{med:.3f} ms over {FUSED_BENCH} step_timed frames (host clock, synced); "
+              f"stage means {stages} ms (CUDA events) ({card})")
+        return med
+
+    reserved_1 = torch.cuda.memory_reserved()
+    staged = median_ms(False)
+    fused = median_ms(True)
+    staged2 = median_ms(False)
+    print(f"fused pinhole 256^3: frame median fused {fused:.3f} ms, staged {staged:.3f} / "
+          f"{staged2:.3f} ms (before / after): {staged / fused:.2f}x / {staged2 / fused:.2f}x "
+          f"({card})")
+    pipe.cfg = pipe.cfg._replace(fused=True)
+    tdir = os.path.join(work, "trace_fused")
+    trace_fused.record(pipe, (*frames[0], mv, proj), 3, tdir)
+    summary = trace_fused.parse(tdir, log=lambda s: print(f"  {s}"))
+    names = " ".join(summary["kernels"])
+    need = ("integrate_quadratic_kernel", "warp_screen_kernel", "bilateral_accum_kernel",
+            "mark_bricks_kernel")
+    missing = [k for k in need if k not in names]
+    if missing or summary["replays"] != 3:
+        raise RuntimeError(f"fused trace: kernels {missing} not in the replays, or "
+                           f"{summary['replays']} replays traced, not 3")
+    print(f"fused pinhole 256^3: device busy {summary['busy_ms']:.3f} ms of a "
+          f"{summary['wall_ms']:.3f} ms fused frame ({summary['busy_share']:.1%}; profiled, "
+          f"host clock, synced; kernels 1-4 named in the replays' trace) ({card})")
+
+    # the orbit: the other five variants captured on warm_variants_async's thread
+    logs = []
+    pipe._log = lambda s: (logs.append(s), print(f"  {s}"))
+    t0 = time.perf_counter()
+    pipe.warm_variants_async(*frames[0], mv, proj)
+    pipe._variants_thread.join(timeout=600)
+    if pipe._variants_thread.is_alive() or sorted(pipe._graphs.keys()) != sorted(pl.VARIANTS):
+        raise RuntimeError(f"warm_variants_async: captured {pipe._graphs.keys()}: {logs}")
+    torch.cuda.synchronize()
+    reserved_6 = torch.cuda.memory_reserved()
+    print(f"fused pinhole 256^3: 5 variants captured on the thread in "
+          f"{time.perf_counter() - t0:.1f} s; memory reserved {reserved_0 / 2**30:.3f} GiB "
+          f"staged, {reserved_1 / 2**30:.3f} GiB with 1 variant, {reserved_6 / 2**30:.3f} GiB "
+          f"with 6 ({card})")
+    for v in pl.VARIANTS:
+        cam = _orbit_camera(pipe, *v)
+        pipe.cfg = pipe.cfg._replace(fused=False)
+        want = pipe.step(*frames[0], cam, proj)
+        pipe.cfg = pipe.cfg._replace(fused=True)
+        got = pipe.step(*frames[0], cam, proj)
+        torch.cuda.synchronize()
+        _same_frame(f"fused orbit {v}", got, want)
+        print(f"fused orbit {v}: bit for bit the staged frame; coverage "
+              f"{float(got.hit.float().mean()):.4f}")
+    if len(pipe._graphs.keys()) != 6:
+        raise RuntimeError(f"the orbit captured more than its 6 variants: {pipe._graphs.keys()}")
+
+
+def _fused_reference(card: str) -> None:
+    """Phase 12 on the reference path: phase 11 (c)'s 128^3 frame, fused
+    (one graph) against staged on the card."""
+    import numpy as np
+    import torch
+    from rgbd_recon_torch.runtime import pipeline as pl
+
+    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                         frames=FUSED_FRAMES)
+    scfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
+                             voxel_size=float(np.max(sbbox.size) / 128), sweep_res=(256, 256),
+                             fast_path=False)
+    pipe = pl.FramePipeline(srig, scfg, device="cuda", log=lambda s: print(f"  {s}"))
+    smv, sproj = pipe.default_camera()
+    staged = [pipe.step(*f, smv, sproj) for f in sframes]
+    # 256x212 color takes exact registration taps (no tile fits): no kernel 2
+    _fused_phase("reference 128^3", pipe, sframes, smv, sproj, staged,
+                 ("bilateral_accum", "mark_bricks"), card)
+    if pipe._graphs.keys() != [(2, False)]:
+        raise RuntimeError(f"the reference path captured {pipe._graphs.keys()}, not one graph")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1188,10 +1396,10 @@ def main() -> int:
                      *integrator_work(packed, int(count), (slots.numel() + int(count) + 1) * 4,
                                       tcfg.res, 10, 3 * 40 + 8 + 4, FUSE_OPS))
 
-    drive("pinhole", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_dense",),
-          PINHOLE_FRAMES, cfg.tsdf_res, split={"warp_screen": [
-              (pp, "warp_screen", lambda a, kw: ws_entry["registration"]),
-              (rmf, "warp_screen", lambda a, kw: ws_entry["screen"])]})
+    outs = drive("pinhole", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_dense",),
+                 PINHOLE_FRAMES, cfg.tsdf_res, split={"warp_screen": [
+                     (pp, "warp_screen", lambda a, kw: ws_entry["registration"]),
+                     (rmf, "warp_screen", lambda a, kw: ws_entry["screen"])]})
     if "--profile" in sys.argv[1:]:
         _profile_frame(pipe, frames[1], mv, proj, card)
     # phase 11 (d) renders this path's production volume of the first frame
@@ -1199,7 +1407,13 @@ def main() -> int:
     golden = dict(zip(("vol", "cvol"), pipe._integrate(pre)), sweep_res=pipe._sweep_res(),
                   zmajor=pipe._dense_emit, limit=float(pipe.tsdf_cfg.limit))
     del pre
-    del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls
+    # phase 12 on this path, then its pinhole extras
+    reserved_0 = torch.cuda.memory_reserved()
+    _fused_phase("pinhole 256^3", pipe, frames, mv, proj, outs,
+                 PATH_KERNELS + ("integrate_dense",), card)
+    with tempfile.TemporaryDirectory(prefix="rgbd_trace_") as tdir:
+        _fused_pinhole(pipe, frames, mv, proj, card, tdir, reserved_0)
+    del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls, outs
 
     # -- 4. distorted rig, 256^3 (the piecewise warp, kernel 5) --------------
     t0 = time.perf_counter()
@@ -1256,15 +1470,18 @@ def main() -> int:
                m * k * h * w * (4 + 8 * c) + k * h * w * 8 * c,
                # per map-pixel the knot coordinate and weights (8), 6 a channel
                m * k * h * w * (8 + 6 * c))
-    drive("distorted", pipe, dframes, mv, proj,
-          PATH_KERNELS + ("integrate_dense", "piecewise_eval"), NUM_FRAMES, dcfg.tsdf_res,
-          split={"piecewise_eval": [(warp_ops, "piecewise_eval",
-                                     lambda a, kw: pe_entry[_piecewise_call(a, kw)])]})
+    outs = drive("distorted", pipe, dframes, mv, proj,
+                 PATH_KERNELS + ("integrate_dense", "piecewise_eval"), NUM_FRAMES,
+                 dcfg.tsdf_res, split={"piecewise_eval": [
+                     (warp_ops, "piecewise_eval",
+                      lambda a, kw: pe_entry[_piecewise_call(a, kw)])]})
     per_call = [launches[pe_entry[key]] for key in ("xyz", "uv", "stencil")]
     if per_call != [2 * NUM_FRAMES, NUM_FRAMES, NUM_FRAMES]:
         raise RuntimeError(f"kernel 5 launched {per_call} times (xyz, uv, stencil) in "
                            f"{NUM_FRAMES} distorted frames, not 2, 1, 1 a frame")
-    del pipe, recs, pcalls, D, a, b, r, got, want, dframes
+    _fused_phase("distorted 256^3", pipe, dframes, mv, proj, outs,
+                 PATH_KERNELS + ("integrate_dense", "piecewise_eval"), card)
+    del pipe, recs, pcalls, D, a, b, r, got, want, dframes, outs
 
     # -- 5. block-major integrator: pinhole rig at 240^3 (kernel 6) ----------
     bcfg = _bench_config(bbox, 240)
@@ -1352,8 +1569,12 @@ def main() -> int:
            20, n8 * 4096 * 12 + n8 * 4 + vox * 12, 0, library=index_put)
     del vbm, cbm, dense_v, dense_c, want_v, want_c, pv, pc, lv, lc
 
-    drive("block-major", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_affine",),
-          NUM_FRAMES, bcfg.tsdf_res)
+    outs = drive("block-major", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_affine",),
+                 NUM_FRAMES, bcfg.tsdf_res)
+    _fused_phase("block-major 240^3", pipe, frames, mv, proj, outs,
+                 PATH_KERNELS + ("integrate_affine",), card)
+    pipe.cfg = pipe.cfg._replace(fused=False)
+    del outs
 
     # the block-major assembly path through the public entry points:
     # kernel 6 in raw mode, then kernel 8
@@ -1396,9 +1617,11 @@ def main() -> int:
                      lambda: tsdf_sparse.integrate_sparse_plain(*sargs), tcfg.limit, 5,
                      *integrator_work(sargs[0], int(count), 4 + int(count) * 4, tcfg.res, 20,
                                       4096 * 12 + 8, FUSE_OPS - WARP_OPS))
-    drive("table", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_sparse",),
-          NUM_FRAMES, tcfg_p.tsdf_res)
-    del pipe, recs, sargs, fr, tables, m16, woff
+    outs = drive("table", pipe, frames, mv, proj, PATH_KERNELS + ("integrate_sparse",),
+                 NUM_FRAMES, tcfg_p.tsdf_res)
+    _fused_phase("table 256^3", pipe, frames, mv, proj, outs,
+                 PATH_KERNELS + ("integrate_sparse",), card)
+    del pipe, recs, sargs, fr, tables, m16, woff, outs
     torch.cuda.empty_cache()
 
     # -- 7. the gather tier, once: a small distorted frame -------------------
@@ -1452,6 +1675,8 @@ def main() -> int:
         _app_phase(rig, frames, card, work)
         _models_phase(rig, frames, card, work, check_integrator, integrator_work, launches)
         _reference_phase(rig, bbox, frames, golden, mv, proj, card, work, drive)
+    # -- 12. fused mode: phases 3-6 above, then the reference path -----------
+    _fused_reference(card)
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -9,7 +9,10 @@ package freely and never reach ``nvcc``.
 
 Each kernel is a ``Kernel``: its ``launches`` counter goes up by one each
 time the wrapper launches it, and a non-zero ``cudaGetLastError()`` from
-the C entry point raises.
+the C entry point raises. A launch made while a CUDA graph is captured
+does not run then: inside ``recording()`` it goes into the capture's own
+tally instead, which the graph's owner adds to the counters at every
+replay (``add_launches``), so the counters count what ran.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import functools
 import hashlib
 import os
 import shutil
+import contextlib
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -126,10 +131,35 @@ class Kernel:
         if rc != 0:
             msg = library().rr_error_string(rc).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed: {msg} ({rc})")
-        self.launches += 1
+        tally = getattr(_RECORDING, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + 1
+        else:
+            add_launches({self.name: 1})
 
 
 KERNELS: dict[str, Kernel] = {}
+_COUNT_LOCK = threading.Lock()      # a variant is captured on another thread
+_RECORDING = threading.local()
+
+
+def add_launches(tally: dict[str, int]) -> None:
+    """Add ``tally`` (kernel name -> launches) to the kernels' counters."""
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            KERNELS[name].launches += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches on this thread go into the yielded tally (kernel name ->
+    launches), not into the counters: wrap a CUDA graph capture in it."""
+    tally: dict[str, int] = {}
+    _RECORDING.tally = tally
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = None
 
 
 def is_cuda(t: torch.Tensor) -> bool:

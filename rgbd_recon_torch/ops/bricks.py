@@ -9,6 +9,7 @@ PyTorch ``index_add_``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -109,13 +110,37 @@ def occupied_ratio(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.float32).mean()
 
 
-def _axis_brick_index(grid: BrickGrid, n_vox: int, axis: int) -> np.ndarray:
-    """Host-side: brick index of each voxel center along one axis (x=0)."""
-    size = float(grid.bbox_max[axis] - grid.bbox_min[axis])
+def _axis_key(grid: BrickGrid, axis: int) -> tuple[float, float, int]:
+    """What the brick index of an axis reads of the grid, hashable: (the
+    bbox's extent, the brick size, the brick count)."""
+    return float(grid.bbox_max[axis] - grid.bbox_min[axis]), grid.brick_size, grid.res[axis]
+
+
+def _axis_brick_index(key: tuple[float, float, int], n_vox: int) -> np.ndarray:
+    """Host-side: brick index of each voxel center along one axis
+    (``_axis_key``)."""
+    size, brick_size, nb = key
     centers = (np.arange(n_vox) + 0.5) / n_vox * size
-    return np.clip(
-        (centers / grid.brick_size).astype(np.int32), 0, grid.res[axis] - 1
-    )
+    return np.clip((centers / brick_size).astype(np.int32), 0, nb - 1)
+
+
+# the index and cover tables below are made once per (axis, device), so a
+# frame copies nothing from the host (``utils.math.device_const``'s rule)
+
+@functools.lru_cache(maxsize=None)
+def _axis_index_t(key: tuple[float, float, int], n_vox: int,
+                  device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_axis_brick_index(key, n_vox), dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_cover_t(key: tuple[float, float, int], n_vox: int, block: int,
+                  device: torch.device) -> torch.Tensor:
+    """bool[n_vox / block, nb]: block i of the axis covers brick j."""
+    idx = _axis_brick_index(key, n_vox).reshape(n_vox // block, block)
+    m = np.zeros((n_vox // block, key[2]), bool)
+    np.put_along_axis(m, idx, True, axis=1)
+    return torch.as_tensor(m, device=device)
 
 
 def voxel_occupancy(mask: torch.Tensor, grid: BrickGrid,
@@ -129,8 +154,7 @@ def voxel_occupancy(mask: torch.Tensor, grid: BrickGrid,
     vx, vy, vz = vol_res
 
     def index(n_vox, axis):
-        return torch.as_tensor(_axis_brick_index(grid, n_vox, axis), dtype=torch.int64,
-                               device=mask.device)
+        return _axis_index_t(_axis_key(grid, axis), n_vox, mask.device)
 
     return mask[index(vz, 2)][:, index(vy, 1)][:, :, index(vx, 0)]
 
@@ -142,14 +166,10 @@ def block_occupancy(mask: torch.Tensor, grid: BrickGrid,
     Returns bool[Vz/16, Vy/16, Vx/16]."""
     vx, vy, vz = vol_res
 
-    def cover(n_vox, axis, nb):
-        idx = _axis_brick_index(grid, n_vox, axis).reshape(n_vox // block, block)
-        m = np.zeros((n_vox // block, nb), bool)
-        np.put_along_axis(m, idx, True, axis=1)
-        return torch.as_tensor(m, device=mask.device)
+    def cover(n_vox, axis):
+        return _axis_cover_t(_axis_key(grid, axis), n_vox, block, mask.device)
 
-    bx, by, bz = grid.res
-    cz, cy, cx = cover(vz, 2, bz), cover(vy, 1, by), cover(vx, 0, bx)
+    cz, cy, cx = cover(vz, 2), cover(vy, 1), cover(vx, 0)
     # any over the covered bricks of each axis, axis by axis
     m = (cz[:, :, None, None] & mask[None]).any(dim=1)            # [Z, by, bx]
     m = (cy[None, :, :, None] & m[:, None]).any(dim=2)            # [Z, Y, bx]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.math import device_const
 from .warp import resize2d_gl
 
 
@@ -53,8 +54,8 @@ def inpaint_downsample(color: torch.Tensor, depth: torch.Tensor):
     # holes in front of geometry, background otherwise
     d_center = dpad[1:1 + 2 * h2:2, 1:1 + 2 * w2:2]
     empty = cnt == 0
-    front = torch.tensor([0.0, 0.0, 0.0, -1.0], device=depth.device)
-    back = torch.tensor([0.0, 1.0, 0.0, 0.0], device=depth.device)
+    front = device_const((0.0, 0.0, 0.0, -1.0), depth.device)
+    back = device_const((0.0, 1.0, 0.0, 0.0), depth.device)
     hole_color = torch.where((d_center < 1.0)[..., None], front, back)
     c_out = torch.where(empty[..., None], hole_color, c_out)
     d_out = torch.where(empty, d_center, d_out)

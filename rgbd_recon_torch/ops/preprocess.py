@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.math import device_const
 from .colors import rgb_to_lab
 from .sample import pixel_texcoords, sample2d, sample3d
 from .warp import warp_screen
@@ -269,7 +270,7 @@ def normals(depth_b: torch.Tensor, rig, warp):
         uv = pixel_texcoords(h, w, dn.device)
 
         def shifted(sy, sx):
-            return uv + torch.tensor([sx / w, sy / h], dtype=torch.float32, device=dn.device)
+            return uv + device_const((sx / w, sy / h), dn.device)
 
         world_c = _sample_cv_per_pixel(rig.cv_xyz, dn, uv)
         world_t = _sample_cv_per_pixel(rig.cv_xyz, d_t, shifted(1.0, 0.0))

@@ -16,13 +16,14 @@ to the world bbox (recon_integration.cpp:66-71).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.math import Bbox, pmat
+from ..utils.math import Bbox, device_const, pmat
 from .sample import sample2d, sample3d
 
 # shading constants (glsl/shading.glsl:4-12)
@@ -38,6 +39,7 @@ _SOLID_DIFFUSE = (0.5, 0.5, 0.5)
 CAMERA_COLORS = torch.from_numpy(np.array(
     [[228, 26, 28], [55, 126, 184], [77, 175, 74], [152, 78, 163], [255, 127, 0]],
     np.float32) / np.float32(255.0))
+_CAMERA_COLORS = tuple(map(tuple, CAMERA_COLORS.tolist()))   # device_const's key
 
 
 class RenderCamera(NamedTuple):
@@ -70,8 +72,25 @@ def vol_to_world_matrix(bbox: Bbox) -> np.ndarray:
     return m
 
 
+def vol_to_world_tensor(bbox: Bbox, device: torch.device) -> torch.Tensor:
+    """``vol_to_world_matrix`` on ``device``, copied once per bbox
+    (``device_const``)."""
+    return device_const(tuple(map(tuple, vol_to_world_matrix(bbox).tolist())),
+                        torch.device(device))
+
+
 def _vec(v, ref: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=ref.device)
+    return device_const(tuple(v), ref.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _ndc_centers(n: int, device: torch.device) -> torch.Tensor:
+    """Pixel centers of an n-pixel axis in NDC, each float32 operation
+    rounded as in JAX; made once per (n, device) (``device_const``'s
+    rule)."""
+    c = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n) \
+        * np.float32(2.0) - np.float32(1.0)
+    return torch.as_tensor(c, device=device)
 
 
 def phong_shade(view_pos: torch.Tensor, view_normal: torch.Tensor) -> torch.Tensor:
@@ -95,21 +114,15 @@ def phong_shade(view_pos: torch.Tensor, view_normal: torch.Tensor) -> torch.Tens
             + _vec(_LIGHT_SPECULAR, view_pos) * _KS * spec[..., None])
 
 
-def _ray_grid(cam: RenderCamera, vol_to_world: np.ndarray):
+def _ray_grid(cam: RenderCamera, bbox: Bbox):
     """Per-pixel ray origin (the camera position) and unit direction in
     volume space, unprojected through the precise camera algebra (TF32
     would cancel the far plane's w)."""
     w, h = cam.width, cam.height
     dev = cam.modelview.device
-    v2w = torch.as_tensor(vol_to_world, dtype=torch.float32, device=dev)
+    v2w = vol_to_world_tensor(bbox, dev)
     mv = cam.modelview.to(torch.float32)
-    # pixel centers in NDC, each float32 operation rounded as in JAX
-    xs = (np.arange(w, dtype=np.float32) + np.float32(0.5)) / np.float32(w) \
-        * np.float32(2.0) - np.float32(1.0)
-    ys = (np.arange(h, dtype=np.float32) + np.float32(0.5)) / np.float32(h) \
-        * np.float32(2.0) - np.float32(1.0)
-    yy, xx = torch.meshgrid(torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev),
-                            indexing="ij")
+    yy, xx = torch.meshgrid(_ndc_centers(h, dev), _ndc_centers(w, dev), indexing="ij")
     one = torch.ones_like(xx)
     mv_vol = pmat(mv, v2w)
     inv = torch.linalg.inv_ex(pmat(cam.proj.to(torch.float32), mv_vol)).inverse
@@ -154,7 +167,7 @@ def march(tsdf: torch.Tensor, cam: RenderCamera, bbox: Bbox, limit: float,
     in volume units (``res * snapped_brick_size / bbox.size``, over 1 where
     the brick size does not divide the bbox)."""
     sample_distance = limit * 0.5  # fs:34
-    origin, dirs = _ray_grid(cam, vol_to_world_matrix(bbox))
+    origin, dirs = _ray_grid(cam, bbox)
     step_vec = dirs * sample_distance
     dev = step_vec.device
     shape = step_vec.shape[:-1]
@@ -168,7 +181,7 @@ def march(tsdf: torch.Tensor, cam: RenderCamera, bbox: Bbox, limit: float,
         coarse_step = np.float32(bsz / sample_distance)  # in fine-step units
         n_coarse = int(math.ceil(math.sqrt(3.0) / bsz)) + 2
         occ = brick_mask.to(torch.float32)[..., None]
-        extent = (torch.as_tensor(np.asarray(brick_extent, np.float32), device=dev)
+        extent = (device_const(tuple(np.asarray(brick_extent, np.float32).tolist()), dev)
                   if brick_extent is not None else torch.ones(3, device=dev))
         t_entry = torch.full(shape, math.inf, device=dev)
         t_exit = torch.full(shape, -math.inf, device=dev)
@@ -260,7 +273,7 @@ def blend_colors_exact(frames, rig, pos: torch.Tensor, limit: float) -> torch.Te
 def blend_cameras(frames, rig, pos: torch.Tensor, limit: float) -> torch.Tensor:
     """Camera-influence debug colors (tsdf_raymarch.fs:346-361 with
     getWeights :151-166): rgb [..., 3], white where no sensor sees."""
-    colors = CAMERA_COLORS.to(pos.device)
+    colors = device_const(_CAMERA_COLORS, pos.device)
     total_color = torch.zeros(pos.shape[:-1] + (3,), dtype=torch.float32, device=pos.device)
     total_weight = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
     for i in range(rig.num_sensors):
@@ -305,7 +318,7 @@ def render(tsdf: torch.Tensor, color_volume: torch.Tensor | None, frames, rig,
     else:
         rgba = sample3d(color_volume, pos)
 
-    v2w = torch.as_tensor(vol_to_world_matrix(bbox), device=pos.device)
+    v2w = vol_to_world_tensor(bbox, pos.device)
     mvt = cam.modelview.to(torch.float32)
     normal_vol = gradient_normal(tsdf, pos, limit)
     mv = pmat(mvt, v2w)

@@ -8,8 +8,12 @@ secant refinement, fs:92-110), then warp the intermediate hit buffers to
 the screen with the windowed warp (kernel 2) and shade.
 
 This is the per-slice form of the JAX sweep with the slab skip: slices of
-16-voxel brick layers holding no occupied brick are skipped (decided on the
-host from the frame's brick mask). The resample products keep the JAX
+16-voxel brick layers holding no occupied brick are skipped. The staged
+frame decides that on the host from the frame's brick mask
+(``slab_occupancy``, one sync a frame); the fused frame, one CUDA graph,
+keeps the flags on the device (``slab_occupancy_device``) as JAX keeps
+them under ``lax.cond``: every slice is resampled and the flag selects
+the skip's values, bit for bit the host skip's. The resample products keep the JAX
 version's bf16 rounding of weights, slices and the row-stage intermediate
 with float32 accumulation (TF32 off), so both sides resample the same
 numbers. Two volume layouts, as the JAX sweep reads them: the dense
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.math import Bbox, full_f32, pmat
-from .raymarch import RenderCamera, RenderOutput, RenderParams, phong_shade, vol_to_world_matrix
+from .raymarch import RenderCamera, RenderOutput, RenderParams, phong_shade, vol_to_world_tensor
 from .warp import warp_screen
 
 
@@ -76,11 +80,14 @@ class SweepResult(NamedTuple):
 
 def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
           limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
-          slab_occupied: np.ndarray | None = None, zmajor: bool = True) -> SweepResult:
+          slab_occupied: np.ndarray | torch.Tensor | None = None,
+          zmajor: bool = True) -> SweepResult:
     """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
     color volume ``cvol``: Z-MAJOR [Vz, 4, Vy, Vx] (the dense-emit layout)
     or, with ``zmajor=False``, channels-last [Vz, Vy, Vx, 4];
-    ``slab_occupied`` host bool[n_slices] in physical slice order."""
+    ``slab_occupied`` bool[n_slices] in physical slice order: a host array
+    skips the empty slices, a device tensor (``slab_occupancy_device``)
+    gates them with no host sync, to the same bits."""
     dev = tsdf.device
     coord_perm, array_perm = _permutation(axis)
     vol = tsdf.permute(array_perm)                     # [S, R, C]
@@ -91,9 +98,9 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
         col = cvol.permute((array_perm[0], 3, array_perm[1], array_perm[2]))
     ns, nr, nc = vol.shape
 
-    v2w = torch.as_tensor(vol_to_world_matrix(bbox), device=dev)
-    with full_f32():
-        inv = torch.linalg.inv(pmat(cam.modelview, v2w))
+    v2w = vol_to_world_tensor(bbox, dev)
+    with full_f32():     # inv_ex: inv's numbers without its host-side singularity check
+        inv = torch.linalg.inv_ex(pmat(cam.modelview, v2w)).inverse
     eye = inv[:3, 3]
     eye_p = torch.stack([eye[coord_perm[0]], eye[coord_perm[1]], eye[coord_perm[2]]])
     if flip:
@@ -140,10 +147,11 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
                   torch.zeros((4, ti, si), dtype=bf16, device=dev),
                   torch.zeros((3, ti, si), dtype=bf16, device=dev))
     prev_d, prev_c, prev_g = prev_clear
+    gated = isinstance(slab_occupied, torch.Tensor)
     for k in range(ns):
         k_phys = (ns - 1 - k) if flip else k
         active = hit_s < 0.0
-        if slab_occupied is not None and not slab_occupied[k_phys]:
+        if slab_occupied is not None and not gated and not slab_occupied[k_phys]:
             # an empty slice: no crossing, the carry decays to the clear values
             nsamp = nsamp + active.to(torch.float32)
             prev_d, prev_c, prev_g = prev_clear
@@ -158,6 +166,9 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
         gs = (d - prev_d) / ds
         g = torch.stack([gs, gr, gc], dim=0)
         crossed = active & (d > 0.0) & (k > 0)
+        if gated:           # an empty slice crosses nothing
+            on = slab_occupied[k_phys]
+            crossed = crossed & on
         den = d - prev_d
         frac = prev_d / torch.where(den.abs() > 1e-20, den, 1e-20)
         s_hit = s_k - ds - ds * frac
@@ -169,6 +180,9 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
         hit_g = torch.where(crossed[None], g_hit.to(bf16), hit_g)
         nsamp = nsamp + active.to(torch.float32)
         prev_d, prev_c, prev_g = d, c.to(bf16), g.to(bf16)
+        if gated:           # ... and decays the carry to the clear values
+            prev_d, prev_c, prev_g = (torch.where(on, p, q) for p, q in
+                                      zip((prev_d, prev_c, prev_g), prev_clear))
 
     hit = (hit_s >= 0.0).to(torch.float32)
     return SweepResult(
@@ -213,9 +227,9 @@ def shade_sweep(res: SweepResult, cam: RenderCamera, bbox: Bbox, axis: int,
     dev = res.hit.device
     coord_perm, _ = _permutation(axis)
     ti, si = cfg.res
-    v2w = torch.as_tensor(vol_to_world_matrix(bbox), device=dev)
+    v2w = vol_to_world_tensor(bbox, dev)
     with full_f32():
-        inv = torch.linalg.inv(pmat(cam.proj, pmat(cam.modelview, v2w)))
+        inv = torch.linalg.inv_ex(pmat(cam.proj, pmat(cam.modelview, v2w))).inverse
     w, h = cam.width, cam.height
     xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 - 1.0
     ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2.0 - 1.0
@@ -295,21 +309,30 @@ def shade_sweep(res: SweepResult, cam: RenderCamera, bbox: Bbox, axis: int,
 def render_fast(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera,
                 bbox: Bbox, limit: float, axis: int, flip: bool,
                 params: RenderParams = RenderParams(), cfg: SweepConfig = SweepConfig(),
-                slab_occupied: np.ndarray | None = None, zmajor: bool = True) -> RenderOutput:
-    """Sweep + screen warp + shading (shade modes 0/1/2); ``zmajor``: the
-    color layout, as in ``sweep``."""
+                slab_occupied: np.ndarray | torch.Tensor | None = None,
+                zmajor: bool = True) -> RenderOutput:
+    """Sweep + screen warp + shading (shade modes 0/1/2); ``slab_occupied``
+    and ``zmajor`` as in ``sweep``."""
     res = sweep(tsdf, cvol, cam, bbox, limit, axis, flip, cfg, slab_occupied, zmajor)
     return shade_sweep(res, cam, bbox, axis, flip, tsdf.shape[2 - axis], params, cfg)
 
 
-def slab_occupancy(mask16: torch.Tensor, axis: int, n_slices: int) -> np.ndarray:
+def slab_occupancy_device(mask16: torch.Tensor, axis: int, n_slices: int) -> torch.Tensor:
     """Per-slice occupancy flags along the sweep axis from the 16^3 brick
-    mask: host bool[n_slices] (one device sync per frame)."""
+    mask: bool[n_slices] on the mask's device, no host sync (the fused
+    frame's form)."""
     array_axis = 2 - axis
     other = tuple(a for a in range(3) if a != array_axis)
-    per_block = mask16.any(dim=other[1]).any(dim=other[0]).cpu().numpy()
-    if n_slices % per_block.shape[0] != 0:
+    per_block = mask16.any(dim=other[1]).any(dim=other[0])
+    nb = per_block.shape[0]
+    if n_slices % nb != 0:
         raise ValueError(
             f"slab_occupancy: {n_slices} slices not divisible by "
-            f"{per_block.shape[0]} brick layers along axis {axis}")
-    return np.repeat(per_block, n_slices // per_block.shape[0])
+            f"{nb} brick layers along axis {axis}")
+    return per_block[:, None].expand(nb, n_slices // nb).reshape(n_slices)
+
+
+def slab_occupancy(mask16: torch.Tensor, axis: int, n_slices: int) -> np.ndarray:
+    """``slab_occupancy_device`` read back: host bool[n_slices] (one device
+    sync per frame; the staged frame skips the empty slices)."""
+    return slab_occupancy_device(mask16, axis, n_slices).cpu().numpy()

@@ -18,6 +18,7 @@ volume at once would hold ~3 GB of them) and the result is the same.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -50,9 +51,12 @@ class TsdfConfig(NamedTuple):
         return TsdfConfig(res, limit)
 
 
-def _axis_centers(n: int) -> np.ndarray:
-    """(i + 0.5) / n in float32, each operation rounded as JAX rounds it."""
-    return (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+@functools.lru_cache(maxsize=None)
+def _axis_centers(n: int, device: torch.device) -> torch.Tensor:
+    """(i + 0.5) / n in float32, each operation rounded as JAX rounds it;
+    made once per (n, device) (``utils.math.device_const``'s rule)."""
+    c = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+    return torch.as_tensor(c, device=device)
 
 
 def voxel_centers_normalized(res: tuple[int, int, int], device=None,
@@ -63,8 +67,9 @@ def voxel_centers_normalized(res: tuple[int, int, int], device=None,
     the slices [z0, z1)."""
     vx, vy, vz = res
     z0, z1 = z_range or (0, vz)
-    xs, ys, zs = (torch.as_tensor(a, device=device) for a in
-                  (_axis_centers(vx), _axis_centers(vy), _axis_centers(vz)[z0:z1]))
+    device = torch.device(device if device is not None else "cpu")
+    xs, ys, zs = _axis_centers(vx, device), _axis_centers(vy, device), \
+        _axis_centers(vz, device)[z0:z1]
     zz, yy, xx = torch.meshgrid(zs, ys, xs, indexing="ij")
     return torch.stack([xx, yy, zz], dim=-1)
 

@@ -25,6 +25,7 @@ same table entries.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -352,15 +353,20 @@ def bake_piecewise_warp(rig, height: int, width: int, knots: int = 32,
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights_bf16(n_src: int, n_dst: int, device: torch.device) -> torch.Tensor:
+    """``_gl_resize_weights_np`` rounded to bf16, on ``device``, made once
+    per (shape, device) (``utils.math.device_const``'s rule)."""
+    return _bf16_round(torch.as_tensor(_gl_resize_weights_np(n_src, n_dst), device=device))
+
+
 def resize2d_gl(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """GL-LINEAR resize of [h, w, C] to out_hw: two hat-weight products with
     the JAX version's bf16 rounding of weights, input and intermediate
     (float32 accumulation), so both sides resize the same numbers."""
     h2, w2 = out_hw
-    wh = _bf16_round(torch.as_tensor(
-        _gl_resize_weights_np(img.shape[0], h2), device=img.device))
-    ww = _bf16_round(torch.as_tensor(
-        _gl_resize_weights_np(img.shape[1], w2), device=img.device))
+    wh = _resize_weights_bf16(img.shape[0], h2, img.device)
+    ww = _resize_weights_bf16(img.shape[1], w2, img.device)
     with full_f32():
         t = torch.einsum("Hh,hwc->Hwc", wh, _bf16_round(img))
         return torch.einsum("Ww,Hwc->HWc", ww, _bf16_round(t))

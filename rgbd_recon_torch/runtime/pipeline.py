@@ -41,7 +41,18 @@ mask to voxels (``bricks.voxel_occupancy``; no 16^3 mask, no cull,
 ``integrate_colors`` over every voxel, 3recon the per-ray marcher
 ``raymarch.render`` (the coarse brick skip with ``skip_space`` and
 ``use_bricks``), all plain PyTorch beside kernels 2 and 3 (and 4 with
-``use_bricks``). Fused mode is rejected in ``_configure``, not ignored.
+``use_bricks``).
+
+Fused mode (``cfg.fused``, read at every step: a caller may assign
+``pipe.cfg``) runs the same frame function, ``_frame``, as one program: on
+a CUDA device one replay of a CUDA graph captured for the frame's sweep
+variant ``(axis, flip)`` (one graph on the reference path, as the JAX
+pipeline runs ``_step`` there), captured at first use with a log line
+(``runtime/frame_graph.py``); on the CPU the frame function eagerly. Its
+sweep keeps the slab flags on the device (``slab_occupancy_device``),
+bit for bit the staged frame's host skip. The graphs hold the addresses
+of the session bakes, so whatever replaces a bake (``_configure``,
+``retune``, ``reload``, a new sensor size) drops them first.
 Session bakes run lazily at the first frame's sensor size, in torch, on
 the pipeline's ``device``; ``preprocess`` runs them and the preprocessing
 alone (the reconstruction strategies of ``models/`` draw from its
@@ -50,14 +61,18 @@ frames).
 Session API (the app's control channel): ``retune`` re-derives only what
 a change invalidates, ``reload`` rebuilds the stages keeping every bake,
 ``warmup`` runs each stage once, synchronised, with a log line each (the
-first call on the card builds the CUDA kernels). Stage timers live on the
+first call on the card builds the CUDA kernels), or in fused mode captures
+the frame's graph; ``warm_variants_async`` captures the other five sweep
+variants on a daemon thread in fused mode. Stage timers live on the
 process-wide ``TimerDatabase.instance()``, as in the JAX package; a new
 pipeline starts its four stage timers empty.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -79,6 +94,7 @@ from ..ops.tsdf_sparse import integrate_sparse, win_offsets_pallas
 from ..ops.warp import bake_piecewise_warp, bake_pixel_warp
 from ..utils.math import look_at, perspective
 from ..utils.timers import TimerDatabase
+from .frame_graph import FrameGraphs
 
 
 class PipelineConfig(NamedTuple):
@@ -139,6 +155,7 @@ class PreOut(NamedTuple):
 
 
 STAGE_TIMERS = ("1preprocess", "2integrate", "3recon", "holefill")
+VARIANTS = tuple((a, f) for a in (2, 0, 1) for f in (False, True))   # sweep (axis, flip)
 
 
 class FramePipeline:
@@ -161,10 +178,15 @@ class FramePipeline:
         self._log = log or (lambda s: None)
         self._table_cache_dir = table_cache_dir
         self._variants_logged = False
+        self._variants_thread = None
         self.timers = TimerDatabase.instance()
         for t in STAGE_TIMERS:
             self.timers.timers.pop(t, None)
             self.timers.add_timer(t)
+        me = weakref.ref(self)      # no cycle: a dropped pipeline frees its graphs at once
+        self._graphs = FrameGraphs(lambda inputs, key: me()._frame(*inputs, *key),
+                                   self.device)
+        self._graph_cfg = None
         self._configure(cfg)
 
     def _configure(self, cfg: PipelineConfig, keep_warp_bake: bool = False) -> None:
@@ -175,9 +197,9 @@ class FramePipeline:
         the integrator bake is redone when the volume res changed (a
         bricking toggle moves the res between align 16 and 1) or when the
         fast path turns on with no bake held. The depth-band cull bake,
-        which reads the TSDF limit, is re-derived at the next frame."""
-        if cfg.fused:
-            raise NotImplementedError("not implemented in the torch port yet: fused")
+        which reads the TSDF limit, is re-derived at the next frame. Drops
+        every fused-frame graph."""
+        self._graphs.drop()
         if cfg.tsdf_res is not None:
             tsdf_cfg = tsdf_ops.TsdfConfig(cfg.tsdf_res, cfg.tsdf_limit)
         else:
@@ -304,6 +326,17 @@ class FramePipeline:
         return warp
 
     def _session(self, h: int, w: int) -> None:
+        """The session bakes of the sensor size (h, w); drops the fused-frame
+        graphs when one is (re)made."""
+        def bakes():
+            return [getattr(self, a, None) for a in ("_warp", "_drig", "_win_off", "_cull_bake")]
+
+        before = bakes()
+        self._session_bakes(h, w)
+        if any(a is not b for a, b in zip(before, bakes())):
+            self._graphs.drop()
+
+    def _session_bakes(self, h: int, w: int) -> None:
         if self._sensor_hw != (h, w):
             self._warp = self._bake_warp(h, w)
             self._sensor_hw = (h, w)
@@ -410,8 +443,10 @@ class FramePipeline:
                 brick_mask=pre.mask if (cfg.skip_space and cfg.use_bricks) else None,
                 brick_size_vol=grid.brick_size / float(np.max(self.bbox.size)),
                 brick_extent=extent)
-        occ = (rmf.slab_occupancy(pre.mask16, axis, self.tsdf_cfg.res[axis])
-               if cfg.skip_space else None)
+        occ = None
+        if cfg.skip_space:      # fused: the flags stay on the device
+            occ = (rmf.slab_occupancy_device if cfg.fused else rmf.slab_occupancy)(
+                pre.mask16, axis, self.tsdf_cfg.res[axis])
         return rmf.render_fast(
             vol, cvol, cam, self.bbox, limit, axis, flip, params,
             rmf.SweepConfig(res=self._sweep_res()), occ, zmajor=self._dense_emit)
@@ -437,10 +472,17 @@ class FramePipeline:
             col = col.to(torch.float32)
         return depth, col.contiguous()
 
-    def _inputs(self, depth_m, color, modelview, proj):
+    def _axis(self, modelview) -> tuple[np.ndarray, tuple[int, bool]]:
+        """The modelview on the host and the frame's sweep (axis, flip);
+        (2, False) on the reference path, which has no sweep."""
         mv_np = np.asarray(modelview.cpu() if isinstance(modelview, torch.Tensor)
                            else modelview, np.float32)
-        axis, flip = rmf.pick_axis(mv_np, rm.vol_to_world_matrix(self.bbox))
+        if not self.use_fast:
+            return mv_np, (2, False)
+        return mv_np, rmf.pick_axis(mv_np, rm.vol_to_world_matrix(self.bbox))
+
+    def _inputs(self, depth_m, color, modelview, proj):
+        mv_np, (axis, flip) = self._axis(modelview)
         depth, col = self._sensor_inputs(depth_m, color)
         return (depth, col, self._t(mv_np), self._t(proj, torch.float32), axis, flip)
 
@@ -456,24 +498,56 @@ class FramePipeline:
     def step(self, depth_m, color, modelview, proj) -> FrameOutput:
         """One frame. depth_m f32[K,H,W] meters; color f32[K,Hc,Wc,3] (or
         u8); modelview/proj f32[4,4] row-major GL matrices (numpy or
-        tensors; the sweep axis is chosen on the host)."""
+        tensors; the sweep axis is chosen on the host). In fused mode one
+        graph replay on a CUDA device (module docstring)."""
         return self._step(depth_m, color, modelview, proj, timed=False)
 
     def step_timed(self, depth_m, color, modelview, proj) -> FrameOutput:
         """``step`` with per-stage times recorded into ``self.timers`` (the
         process-wide ``TimerDatabase``) under the reference's stage names
         (CUDA events on a CUDA device; read with
-        ``self.timers.duration(name)``). The four stages are timed on the
-        reference path too, where the JAX pipeline runs one program and
-        records it under ``3recon`` alone: the timer CSVs of the two
-        packages differ there."""
+        ``self.timers.duration(name)``). Staged, the four stages are timed,
+        on the reference path too, where the JAX pipeline runs one program
+        and records it under ``3recon`` alone: the timer CSVs of the two
+        packages differ there. Fused, as in the JAX pipeline, the whole
+        frame (the graph replay and the copies of its outputs) is timed
+        under ``3recon`` and the other three timers stay empty."""
         return self._step(depth_m, color, modelview, proj, timed=True)
+
+    def _fused_key(self, depth_m, modelview) -> tuple[int, bool]:
+        """Fused mode's set-up of one frame: the session bakes, the graphs
+        dropped if ``cfg`` was reassigned since they were captured; returns
+        the frame's graph key, its sweep (axis, flip)."""
+        if self._graph_cfg != self.cfg:
+            self._graphs.drop()
+            self._graph_cfg = self.cfg
+        self._session(depth_m.shape[1], depth_m.shape[2])
+        return self._axis(modelview)[1]
+
+    def _fused_ready(self, depth_m, color, modelview, proj) -> tuple[int, bool]:
+        """Fused mode on the card: the frame copied into the graphs' inputs
+        and its graph captured at first use, with a log line and the
+        seconds of the eager warm-up (it builds the kernels with nvcc on
+        first use) and of the capture; returns the graph key."""
+        key = self._fused_key(depth_m, modelview)
+        self._graphs.load(depth_m, color, modelview, proj)
+        if key not in self._graphs:
+            what = f"axis={key[0]} flip={key[1]}" if self.use_fast else "per-ray marcher"
+            self._log(f"capturing fused frame step ({what}) ...")
+            secs = self._graphs.capture(key)
+            if secs is not None:
+                self._log(f"  fused step ({what}): warm-up {secs[0]:.1f}s, "
+                          f"capture {secs[1]:.1f}s")
+        return key
 
     def warmup(self, depth_m, color, modelview, proj) -> None:
         """Run the session bakes, then each stage once on these inputs,
         synchronised, with a log line each (the JAX pipeline's per-stage
         compile warm-up). On the card the first kernel launch builds the
-        CUDA library with nvcc (``native.build``), inside 1preprocess."""
+        CUDA library with nvcc (``native.build``), inside 1preprocess. In
+        fused mode on the card: capture the frame's graph, logged with the
+        seconds of its eager warm-up and of the capture (JAX: "compiling
+        fused frame step")."""
         def run(name, fn):
             t0 = time.perf_counter()
             self._log(f"warming {name} ...")
@@ -483,8 +557,15 @@ class FramePipeline:
             self._log(f"  {name}: {time.perf_counter() - t0:.1f}s")
             return out
 
+        if self.cfg.fused and self.device.type == "cuda":
+            self._fused_ready(depth_m, color, modelview, proj)
+            return
         depth, col, mv, pr, axis, flip = run(
             "session bakes", lambda: self._inputs(depth_m, color, modelview, proj))
+        if self.cfg.fused:      # the CPU: the fused frame runs eagerly
+            run("fused frame step (eager on the CPU)",
+                lambda: self._frame(depth, col, mv, pr, axis, flip))
+            return
         pre = run("1preprocess", lambda: self._pre(depth, col))
         vol, cvol = run("2integrate", lambda: self._integrate(pre))
         what = f"axis={axis} flip={flip}" if self.use_fast else "per-ray marcher"
@@ -494,22 +575,46 @@ class FramePipeline:
             run("holefill", lambda: self._fill(out.color, out.depth))
 
     def warm_variants_async(self, depth_m, color, modelview, proj) -> None:
-        """No-op: the JAX pipeline compiles one render program per sweep
-        (axis, flip) and warms the other five in the background; eager
-        PyTorch runs every variant through the same kernels, so there is
-        nothing to compile. Logs that once."""
-        if not self._variants_logged:
-            self._variants_logged = True
-            self._log("render variants: nothing to warm (eager PyTorch has no "
-                      "per-axis programs)")
+        """Fused mode on the card: capture the graphs of the other five
+        sweep variants on a daemon thread (``self._variants_thread``), one
+        log line each, on the thread's own stream; a frame meanwhile
+        replays a finished graph or captures its own. The JAX pipeline
+        compiles them in the background the same way. A capture error is
+        logged and ends the thread: the variant is captured at its first
+        frame. Once per pipeline, as in JAX. Staged, on the CPU or on the
+        reference path (one graph) there is nothing to capture: logged
+        once."""
+        if not (self.cfg.fused and self.device.type == "cuda" and self.use_fast):
+            if not self._variants_logged:
+                self._variants_logged = True
+                self._log("render variants: nothing to warm (eager PyTorch has no "
+                          "per-axis programs)" if not self.cfg.fused else
+                          "render variants: nothing to capture (the CPU runs the fused "
+                          "frame eagerly; the reference path has one graph)")
+            return
+        if self._variants_thread is not None:
+            return
+        cur = self._fused_key(depth_m, modelview)
+        self._graphs.load(depth_m, color, modelview, proj)
+        variants = [v for v in VARIANTS if v != cur]
 
-    def _step(self, depth_m, color, modelview, proj, timed: bool) -> FrameOutput:
-        depth, col, mv, pr, axis, flip = self._inputs(depth_m, color, modelview, proj)
+        def work():
+            try:
+                for axis, flip in variants:
+                    if self._graphs.capture((axis, flip)) is not None:
+                        self._log(f"captured fused variant (axis={axis} flip={flip})")
+            except Exception as e:  # a retune mid-capture may orphan a bake
+                self._log(f"variant capture aborted: {type(e).__name__}: {e}")
 
-        def scope(name):
-            return (self.timers.scope(name, self.device) if timed
-                    else contextlib.nullcontext())
+        t = threading.Thread(target=work, name="variant-capture", daemon=True)
+        self._variants_thread = t
+        t.start()
 
+    def _frame(self, depth, col, mv, pr, axis, flip, scope=None) -> FrameOutput:
+        """The whole frame as one function of device tensors: 1preprocess,
+        2integrate, 3recon and holefill, each in ``scope(stage name)``
+        (staged mode's timers). Fused mode's graph body."""
+        scope = scope or (lambda name: contextlib.nullcontext())
         with scope("1preprocess"):
             pre = self._pre(depth, col)
         with scope("2integrate"):
@@ -520,13 +625,31 @@ class FramePipeline:
         if self.cfg.fill_holes:
             with scope("holefill"):
                 color_out = self._fill(out.color, out.depth)
-        if timed:
-            self.timers.flush()
         return FrameOutput(
             color=color_out, depth=out.depth, hit=out.hit, tsdf=vol,
             occupied_ratio=pre.occupied, num_samples=out.num_samples,
             occupied_bricks=pre.n_occ,
         )
+
+    def _step(self, depth_m, color, modelview, proj, timed: bool) -> FrameOutput:
+        def scope(name):
+            return (self.timers.scope(name, self.device) if timed
+                    else contextlib.nullcontext())
+
+        if self.cfg.fused and self.device.type == "cuda":
+            key = self._fused_ready(depth_m, color, modelview, proj)
+            with scope("3recon"):
+                out = self._graphs.replay(key)
+        else:
+            depth, col, mv, pr, axis, flip = self._inputs(depth_m, color, modelview, proj)
+            if self.cfg.fused:      # the CPU: the fused frame eagerly, timed as one
+                with scope("3recon"):
+                    out = self._frame(depth, col, mv, pr, axis, flip)
+            else:
+                out = self._frame(depth, col, mv, pr, axis, flip, scope)
+        if timed:
+            self.timers.flush()
+        return out
 
     def check_capacity(self, out: FrameOutput) -> int:
         """Raise if the frame's occupied-brick count exceeded the capacity

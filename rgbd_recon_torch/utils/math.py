@@ -9,6 +9,8 @@ the far plane cancels to 0/NaN at reduced precision).
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -64,19 +66,43 @@ def look_at(eye, center, up) -> np.ndarray:
     return m.astype(np.float32)
 
 
+_F32_LOCK = threading.Lock()
+_F32_STATE = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run float32 products at full precision: TF32 off for matmuls and
-    convolutions (cuDNN's default is TF32), restored on exit."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    conv = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    convolutions (cuDNN's default is TF32), restored when the last thread
+    inside leaves (the flags are process-wide; a variant captured on
+    another thread must not see them restored under it)."""
+    with _F32_LOCK:
+        if _F32_STATE["depth"] == 0:
+            _F32_STATE["saved"] = (torch.backends.cuda.matmul.allow_tf32,
+                                   torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _F32_STATE["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = conv
+        with _F32_LOCK:
+            _F32_STATE["depth"] -= 1
+            if _F32_STATE["depth"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _F32_STATE["saved"]
+
+
+@functools.lru_cache(maxsize=None)
+def device_const(values: tuple, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, copied from the host once and
+    shared after that: a frame reads its small constants with no copy from
+    the host, which a CUDA graph capture refuses (the first call happens in
+    the eager warm-up before any capture). Callers never write to it. Never
+    evicted: a captured graph holds the tensor's address, not a
+    reference."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def pmat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -595,3 +595,87 @@ def test_reference_path_cuda(dev):
                                               depth=o.depth.cpu().numpy(),
                                               hit=o.hit.cpu().numpy()) for o in (c, g)))
     assert render_parity_passes(s) and s["hit_frac"] > 0.02, s
+
+
+# -- fused mode: the frame as one CUDA graph per sweep variant ---------------
+
+FIELDS = ("color", "depth", "hit", "tsdf", "occupied_ratio", "num_samples", "occupied_bricks")
+
+
+def _assert_same(a, b, what):
+    """Bit for bit on every FrameOutput field: the fused frame runs the
+    staged frame's arithmetic; only the slab skip's selects differ."""
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), (what, f)
+
+
+def _orbit_camera(pipe, axis, flip):
+    """A view whose sweep is (axis, flip): the eye off the volume center
+    along that axis (a little off-axis, so no tie), looking at the center."""
+    from rgbd_recon_torch.ops import raymarch as rm, raymarch_fast as rmf
+    from rgbd_recon_torch.utils.math import look_at
+
+    center = (pipe.bbox.min + pipe.bbox.max) * 0.5
+    d = np.array([0.25, 0.35, 0.3], np.float32)
+    d[axis] = 3.0 if flip else -3.0
+    up = [0, 0, 1] if axis == 1 else [0, 1, 0]
+    mv = look_at(center + d, center, up)
+    assert rmf.pick_axis(mv, rm.vol_to_world_matrix(pipe.bbox)) == (axis, flip)
+    return mv
+
+
+def test_fused_replay_matches_staged_cuda(dev):
+    """A captured replay equals the staged frame bit for bit; kernels 2-4
+    and the integrator count their per-frame launches on every replay."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev)
+    staged = pipe.step(depth, color, mv, proj)
+    for k in native.KERNELS.values():
+        k.launches = 0
+    pipe.step(depth, color, mv, proj)
+    torch.cuda.synchronize()
+    per_frame = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+    assert {"bilateral_accum", "mark_bricks", "warp_screen", "integrate_dense"} <= set(per_frame)
+    pipe.cfg = pipe.cfg._replace(fused=True)
+    pipe.warmup(depth, color, mv, proj)         # the capture
+    for k in native.KERNELS.values():
+        k.launches = 0
+    for i in range(3):
+        out = pipe.step(depth, color, mv, proj)
+        torch.cuda.synchronize()
+        _assert_same(out, staged, f"replay {i}")
+        assert {n: k.launches for n, k in native.KERNELS.items() if k.launches} == \
+            {n: c * (i + 1) for n, c in per_frame.items()}
+    assert len(pipe._graphs.keys()) == 1
+
+
+def test_fused_retune_matches_fresh_cuda(dev):
+    """After retune(tsdf_limit=...) the next fused frame (its graph dropped
+    and captured anew) equals a fresh fused pipeline's."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev, fused=True)
+    pipe.step(depth, color, mv, proj)
+    assert len(pipe._graphs.keys()) == 1
+    pipe.retune(tsdf_limit=0.02)
+    assert pipe._graphs.keys() == []
+    out = pipe.step(depth, color, mv, proj)
+    fresh, *_ = _small_pipeline(dev, fused=True, tsdf_limit=0.02)
+    _assert_same(out, fresh.step(depth, color, mv, proj), "retune")
+
+
+def test_fused_variants_async_cuda(dev):
+    """warm_variants_async captures the other five (axis, flip) variants on
+    its thread; each replay equals the staged frame at its own camera."""
+    pipe, depth, color, mv, proj = _small_pipeline(dev, fused=True)
+    logs = []
+    pipe._log = logs.append
+    cams = {v: _orbit_camera(pipe, *v) for v in
+            [(a, f) for a in (2, 0, 1) for f in (False, True)]}
+    pipe.step(depth, color, cams[(2, False)], proj)
+    pipe.warm_variants_async(depth, color, cams[(2, False)], proj)
+    pipe._variants_thread.join(timeout=600)
+    assert not pipe._variants_thread.is_alive()
+    assert sorted(pipe._graphs.keys()) == sorted(cams), logs
+    assert sum("captured fused variant" in s for s in logs) == 5, logs
+    staged, *_ = _small_pipeline(dev)
+    for v, cam in cams.items():
+        _assert_same(pipe.step(depth, color, cam, proj), staged.step(depth, color, cam, proj),
+                     v)

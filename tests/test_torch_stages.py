@@ -289,17 +289,20 @@ def test_slice_matches_jax(ref):
                ("1preprocess", "2integrate", "3recon", "holefill"))
 
 
-@pytest.mark.parametrize("change", [dict(fused=True)])
-def test_pipeline_rejects_what_it_does_not_implement(small_rig, change):
-    """Options outside the port raise instead of being ignored: fused mode
-    (the reference path runs since it was ported, tests/
-    test_torch_reference.py)."""
-    from rgbd_recon_torch.calibration.rig import RigCalibration
-
-    rig = RigCalibration(*(np.asarray(getattr(small_rig["rig"], f))
-                           for f in RigCalibration._fields))
-    with pytest.raises(NotImplementedError):
-        FramePipeline(rig, PipelineConfig(**change), device="cpu")
+def test_fused_slice_matches_jax(ref):
+    """Fused mode (``cfg.fused``: the frame function with the slab flags on
+    the device, run eagerly on the CPU) on the same chain, at the bounds of
+    test_slice_matches_jax; ``step_timed`` records the whole frame under
+    3recon alone, as the JAX pipeline's fused step does."""
+    pipe = FramePipeline(from_jax(ref.rig), ref.pipe_cfg._replace(fused=True), device="cpu")
+    out = pipe.step(ref.depth, ref.color, ref.mv, ref.proj)
+    assert pipe.check_capacity(out) == int(np.asarray(ref.m2).sum())
+    assert out.tsdf.shape == (N, N, N) and out.color.shape == (RH, RW, 4)
+    _parity(out, ref.filled, ref.out)
+    out2 = pipe.step_timed(ref.depth, ref.color, ref.mv, ref.proj)
+    assert torch.equal(out2.color, out.color)
+    assert [pipe.timers.timers[t].count for t in
+            ("1preprocess", "2integrate", "3recon", "holefill")] == [0, 0, 1, 0]
 
 
 @pytest.mark.parametrize("res, use_pallas, kernel_tiers", [
