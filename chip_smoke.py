@@ -121,7 +121,37 @@ a result line):
               (``warm_variants_async`` captures the other 5 variants on its
               thread; each variant's frame bit for bit the staged frame at its
               camera). Last, phase 11 (c)'s 128^3 frame on the reference path
-              (one graph), fused against staged.
+              (one graph), fused against staged;
+13. sharded   the sharded paths and the offline tools (``parallel/``,
+              ``calibration.inverter``, ``io/native.py``): (a) a world of one
+              under NCCL (TCP rendezvous on 127.0.0.1) at phase 3's
+              configuration with the cull off (the default capacity):
+              ``fast_sharded_step`` bit for bit ``FramePipeline.step``
+              (kernels 1-4 launched, counted a frame); the default step (cull
+              on) at the render-parity bounds, its TSDF at the integrator
+              bound over the bricks its cull kept and clear in the others;
+              the frame medians of the three over 5 frames; the world-of-one
+              frames of (b); ``ReplayDriver`` with B = 2
+              distinct frames bit for bit two steps; ``sharded_step`` at
+              phase 11 (c)'s 128^3 bit for bit the reference path; the group
+              destroyed. (b) 4 z-slabs of 64 on one card
+              (``fast_sharded.sweep_slabs``: the per-rank functions rank by
+              rank, pieces, halos and planes handed over) at each of the six
+              sweep variants of the orbit cameras against the world-of-one
+              frames of (a), bit for bit or, only where the slab flags show a
+              window starting after an empty brick layer, the TSDF exact and
+              the folded planes at the windowed-start bounds against the
+              whole sweep (hit and samples exact, hit_s 5e-5, colors and
+              gradients 1e-2); 240^3 refused over 4 ranks and run
+              as 3 slabs of 80 (kernel 6) against its world of one. (c)
+              ``python -m
+              rgbd_recon_torch.scripts.calib_inverter`` on phase 9's scene at
+              0.007 m (286x315x286, 4 sensors): seconds a sensor, device
+              memory peak, each volume read back and held against the
+              analytic inverse (median and p99 within 0.5 and 2 forward
+              cells), the frustum share; the card against the CPU on a small
+              scene (masks equal, atol 1e-5). (d) the native DXT decoder bit
+              for bit ``io/dxt.py`` on phase 9's recorded planes, both timed.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -403,37 +433,50 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _app_phase(rig, frames, card: str, work: str) -> None:
-    """Phase 9 (module docstring). ``rig``/``frames``: the pinhole bench rig
-    built in memory and its distinct noisy frames; ``work``: the directory
-    the scene is written into (phase 10 replays it too)."""
-    import numpy as np
-    import torch
-    from rgbd_recon_torch import app as app_mod
-    from rgbd_recon_torch import native
+def _write_app_scene(work: str, frames):
+    """Phase 9's scene in ``work``: the reference-format files of the
+    4-sensor pinhole rig and APP_FRAMES compressed recorded frames. Returns
+    (.ks path, stream paths, FrameFormat)."""
     from rgbd_recon_torch.calibration import synthetic
-    from rgbd_recon_torch.io.stream import FrameFormat, StreamReader, StreamWriter
-    from rgbd_recon_torch.ops.wire import make_wire_decoder
-    from rgbd_recon_torch.runtime import pipeline as pl
-    from rgbd_recon_torch.utils.math import Bbox, perspective
-    from rgbd_recon_torch.utils.navigator import CameraNavigator
-    from rgbd_recon_torch.utils.png import read_png
+    from rgbd_recon_torch.io.stream import FrameFormat, StreamWriter
+    from rgbd_recon_torch.utils.math import Bbox
 
-    dev = torch.device("cuda")
-    need = ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_affine")
-    t0 = time.perf_counter()
     ks = synthetic.write_reference_scene(
         work, num_sensors=4, bbox=Bbox.default(), fwd_res=(128, 256, 128),
         inv_res=(128, 128, 128), width=512, height=424, compressed_rgb=1,
         compressed_depth=True)
     fmt = FrameFormat(512, 424, 512, 424, compressed_rgb=1, compressed_depth=True)
-    rec, out_dir = os.path.join(work, "recordings"), os.path.join(work, "frames")
+    rec = os.path.join(work, "recordings")
     os.makedirs(rec)
     paths = [os.path.join(rec, f"sensor{k}.stream") for k in range(4)]
     w = StreamWriter(paths, fmt)
     for depth, color in frames[:APP_FRAMES]:
         w.write(depth, color)
     w.close()
+    return ks, paths, fmt
+
+
+def _app_phase(rig, frames, card: str, work: str):
+    """Phase 9 (module docstring). ``rig``/``frames``: the pinhole bench rig
+    built in memory and its distinct noisy frames; ``work``: the directory
+    the scene is written into (phases 10, 11 and 13 read it too). Returns
+    ``_write_app_scene``'s (.ks path, stream paths, FrameFormat)."""
+    import numpy as np
+    import torch
+    from rgbd_recon_torch import app as app_mod
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.io.stream import StreamReader
+    from rgbd_recon_torch.ops.wire import make_wire_decoder
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.math import perspective
+    from rgbd_recon_torch.utils.navigator import CameraNavigator
+    from rgbd_recon_torch.utils.png import read_png
+
+    dev = torch.device("cuda")
+    need = ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_affine")
+    t0 = time.perf_counter()
+    scene = ks, paths, fmt = _write_app_scene(work, frames)
+    rec, out_dir = os.path.dirname(paths[0]), os.path.join(work, "frames")
     conf = os.path.join(work, "run.conf")
     with open(conf, "w") as f:
         f.write(APP_CONF)
@@ -558,6 +601,7 @@ def _app_phase(rig, frames, card: str, work: str) -> None:
           f"err {err:.3e} (atol 1e-5, tests/test_app.py:187), coverage {cov:.4f}")
     if not (err <= 1e-5 and cov > 0.0):
         raise RuntimeError("the app's first frame differs from the in-memory pipeline's")
+    return scene
 
 
 MODELS_CONF = APP_CONF.replace("recon_mode: 1", "recon_mode: 0")
@@ -1119,6 +1163,325 @@ def _fused_reference(card: str) -> None:
         raise RuntimeError(f"the reference path captured {pipe._graphs.keys()}, not one graph")
 
 
+SHARD_FRAMES = 5           # timed frames of phase 13 (a)'s steps
+SHARD_SLABS = 4            # phase 13 (b): slabs of the 256^3 volume
+
+
+def _median_ms(fn, n: int) -> float:
+    """Median ms of ``n`` calls of ``fn(i)`` (host clock, synced)."""
+    import numpy as np
+    import torch
+
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _bitwise(label: str, got, want, fields=OUT_FIELDS) -> None:
+    import torch
+
+    bad = [f for f in fields if not (getattr(got, f).dtype == getattr(want, f).dtype
+                                     and torch.equal(getattr(got, f), getattr(want, f)))]
+    if bad:
+        raise RuntimeError(f"{label}: not bit for bit in {bad}")
+
+
+def _within_default(label: str, got, want, keep16, limit: float) -> str:
+    """The sharded frame (no cull) against the default single-card step,
+    whose depth-band cull drops bricks by design (a dropped brick holds the
+    clear value, ``ops/tsdf_affine.py`` block_depth_cull): the image at the
+    render-parity bounds (tests/test_golden.py:65-69), the TSDF at the
+    integrator bound (tests/test_tsdf_affine.py:109-116) over the bricks
+    the cull kept (``keep16``), the clear value in every brick it dropped."""
+    import torch
+    from rgbd_recon_torch.utils.metrics import render_parity, render_parity_passes
+
+    host = [types.SimpleNamespace(color=o.color.cpu().numpy(), depth=o.depth.cpu().numpy(),
+                                  hit=o.hit.cpu().numpy()) for o in (want, got)]
+    st = render_parity(*host)
+    keep = keep16.repeat_interleave(16, 0).repeat_interleave(16, 1).repeat_interleave(16, 2)
+    v, w = got.tsdf.float()[keep], want.tsdf.float()[keep]
+    off = float(((v - w).abs() > 1e-4).float().mean())
+    occ, wocc = int((v > -limit + 1e-9).sum()), int((w > -limit + 1e-9).sum())
+    clear = torch.tensor(-limit, dtype=want.tsdf.dtype, device=want.tsdf.device)
+    dropped_clear = bool((want.tsdf[~keep] == clear).all())
+    ok = (render_parity_passes(st) and st["hit_frac"] > 0.02 and off < 1e-4
+          and abs(occ - wocc) <= max(100, 0.002 * wocc) and dropped_clear)
+    txt = (f"hit agreement {st['hit_agreement']:.5f}, psnr {st['psnr_rgb']:.2f} dB, ssim "
+           f"{st['ssim_rgb']:.5f}, depth err median {st['depth_err_med']:.2e} p99 "
+           f"{st['depth_err_p99']:.2e}; over the {int(keep16.sum())} bricks the cull kept: "
+           f"tsdf voxels off >1e-4 {off:.2e}, occupied {occ} vs {wocc}; the "
+           f"{int((~keep16).sum())} others clear in the default step: {dropped_clear}")
+    if not ok:
+        raise RuntimeError(f"{label}: outside the bounds of the default step: {txt}")
+    return txt
+
+
+def _slabs_vs_world(label: str, pipe, n: int, s, got, want, inputs) -> str:
+    """Phase 13 (b): the frame of ``n`` slabs run rank by rank (``got``,
+    from ``fast_sharded.sweep_slabs`` ``s``) against the world of one
+    (``want``). Bit for bit, except where some window starts right after an
+    empty brick layer, as the slab flags show: JAX's windowed start
+    rebuilds the carry from the halo there (ROADMAP queue 3). That case
+    holds the TSDF exact, the frame of one slab bit for bit ``want``, and
+    the folded planes against that slab's (the whole sweep) at the bounds
+    measured for the deviation (tests/test_torch_sweep_window.py: hit and
+    sample counts exact, hit_s 5e-5, colors and gradients 1e-2). Returns
+    the finding for the log."""
+    import torch
+    from rgbd_recon_torch.parallel import fast_sharded as fs
+
+    diff = [f for f in OUT_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
+    if not diff:
+        return "bit for bit"
+    ns = pipe.tsdf_cfg.res[s.axis]
+    nl = ns // n
+    # window L (logical) starts at slice L*nl; its halo ends at logical
+    # L*nl - 1, physical ns - L*nl when flipped
+    after_empty = [w for w in range(1, n) if s.flags is not None
+                   and not s.flags[(ns - w * nl) if s.flip else w * nl - 1]]
+    if not after_empty or "tsdf" in diff:
+        raise RuntimeError(f"{label}: not bit for bit in {diff}; windows starting after an "
+                           f"empty brick layer: {after_empty}")
+    whole = fs.sweep_slabs(pipe, 1, *inputs)
+    _bitwise(f"{label}: one slab vs the world of one", fs.finish(pipe, *whole[:-1]), want)
+    bounds = {"hit": 0.0, "num_samples": 0.0, "hit_s": 5e-5, "hit_color": 1e-2,
+              "hit_grad": 1e-2}
+    dev = {f: float((getattr(s.merged, f) - getattr(whole.merged, f)).abs().max())
+           for f in bounds}
+    txt = (f"differs in {diff}; windows {after_empty} (logical) start after an empty brick "
+           f"layer; planes against the whole sweep, max {dev} (bounds {bounds})")
+    if any(dev[f] > b for f, b in bounds.items()) or not any(dev.values()):
+        raise RuntimeError(f"{label}: {txt}: outside the windowed-start bounds, or the "
+                           f"frame differs where the planes do not")
+    return txt
+
+
+def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt) -> None:
+    """Phase 13 (module docstring): the sharded paths, the inverter and the
+    native decoder. ``rig``/``frames``: phase 3's; ``work``/``ks``/``paths``/
+    ``fmt``: phase 9's scene."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration import inverter as inv_mod
+    from rgbd_recon_torch.calibration import synthetic
+    from rgbd_recon_torch.calibration.volume import CalibrationVolume
+    from rgbd_recon_torch.io import dxt, native as host_native
+    from rgbd_recon_torch.io.stream import StreamReader
+    from rgbd_recon_torch.parallel import fast_sharded as fs
+    from rgbd_recon_torch.parallel.replay import ReplayDriver
+    from rgbd_recon_torch.parallel.sharding import make_mesh, sharded_step
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.scripts import calib_inverter
+    from rgbd_recon_torch.utils.math import Bbox
+
+    dev = torch.device("cuda")
+    n = 256
+
+    def counts():
+        return {name: k.launches for name, k in native.KERNELS.items() if k.launches}
+
+    def zero():
+        torch.cuda.synchronize()
+        for k in native.KERNELS.values():
+            k.launches = 0
+
+    # (a) a world of one under NCCL at phase 3's configuration (no cull)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh = make_mesh(device="cuda")
+    print(f"sharded (a): process group {dist.get_backend()} world {mesh.size} on {mesh.device}")
+    try:
+        pipe = pl.FramePipeline(rig, _bench_config(bbox, n, brick_cull=False), device=dev)
+        base = pl.FramePipeline(rig, _bench_config(bbox, n), device=dev)
+        mv, proj = pipe.default_camera()
+        step = fs.fast_sharded_step(pipe, mesh)
+        want = pipe.step(*frames[0], mv, proj)
+        step(*frames[0], mv, proj)
+        zero()
+        got = step(*frames[0], mv, proj)
+        per_frame = counts()
+        print(f"sharded (a): fast_sharded_step launches a frame (world of one): {per_frame}")
+        missing = [k for k in PATH_KERNELS + ("integrate_dense",) if k not in per_frame]
+        if missing:
+            raise RuntimeError(f"sharded (a): kernels never launched: {missing}")
+        _bitwise("sharded (a) fast_sharded_step vs step(brick_cull=False)", got, want)
+        keep16 = base._pre(*base._sensor_inputs(*frames[0])).mask16
+        txt = _within_default("sharded (a)", got, base.step(*frames[0], mv, proj), keep16,
+                              float(base.tsdf_cfg.limit))
+        print(f"sharded (a): fast_sharded_step bit for bit step(brick_cull=False); against "
+              f"the default step (cull on): {txt}")
+        nf = len(frames)
+        t_sh = _median_ms(lambda i: step(*frames[i % nf], mv, proj), SHARD_FRAMES)
+        t_1 = _median_ms(lambda i: pipe.step(*frames[i % nf], mv, proj), SHARD_FRAMES)
+        t_b = _median_ms(lambda i: base.step(*frames[i % nf], mv, proj), SHARD_FRAMES)
+        print(f"sharded (a): frame median over {SHARD_FRAMES} frames (host clock, synced): "
+              f"fast_sharded_step {t_sh:.1f} ms, step(brick_cull=False) {t_1:.1f} ms, default "
+              f"step {t_b:.1f} ms ({card})")
+
+        # ReplayDriver, B = 2 distinct frames, against two steps
+        drv = ReplayDriver(base, mesh)
+        db = np.stack([frames[0][0], frames[1][0]])
+        cb = np.stack([frames[0][1], frames[1][1]])
+        zero()
+        out = drv.step(db, cb, mv, proj)
+        rc = counts()
+        for i in range(2):
+            item = types.SimpleNamespace(**{f: getattr(out, f)[i] for f in OUT_FIELDS})
+            _bitwise(f"sharded (a) ReplayDriver item {i}", item, base.step(*frames[i], mv, proj))
+        t_r = _median_ms(lambda i: drv.step(db, cb, mv, proj), 3)
+        print(f"sharded (a): ReplayDriver B=2 bit for bit two steps; launches {rc}; median "
+              f"{t_r:.1f} ms a batch step (host clock, synced) ({card})")
+        # the world-of-one frames (b) holds the slabs to: the six sweep
+        # variants at 256^3, and the z camera at 240^3 (kernel 6)
+        world = {v: step(*frames[0], _orbit_camera(pipe, *v), proj) for v in pl.VARIANTS}
+        bpipe = pl.FramePipeline(rig, _bench_config(bbox, 240, brick_cull=False), device=dev)
+        world[240] = fs.fast_sharded_step(bpipe, mesh)(*frames[0], mv, proj)
+        del drv, out, base, step, got, want
+
+        # sharded_step at phase 11 (c)'s 128^3 against the reference path
+        srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                             frames=1)
+        scfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128,) * 3,
+                                 voxel_size=float(np.max(sbbox.size) / 128),
+                                 sweep_res=(256, 256), fast_path=False)
+        rpipe = pl.FramePipeline(srig, scfg, device=dev)
+        smv, sproj = rpipe.default_camera()
+        dstep = sharded_step(rpipe, mesh)
+        want = rpipe.step(*sframes[0], smv, sproj)
+        dstep(*sframes[0], smv, sproj)
+        zero()
+        got = dstep(*sframes[0], smv, sproj)
+        dc = counts()
+        _bitwise("sharded (a) sharded_step vs the reference path", got, want, OUT_FIELDS[:-1])
+        t_d = _median_ms(lambda i: dstep(*sframes[0], smv, sproj), 3)
+        t_r1 = _median_ms(lambda i: rpipe.step(*sframes[0], smv, sproj), 3)
+        print(f"sharded (a): sharded_step at 128^3 bit for bit the reference path "
+              f"(fast_path=False); launches {dc}; occupied bricks {int(got.occupied_bricks)} "
+              f"(the brick grid's, as JAX's step counts); median {t_d:.1f} ms vs {t_r1:.1f} ms "
+              f"(host clock, synced) ({card})")
+        del rpipe, dstep, got, want
+    finally:
+        dist.destroy_process_group()
+
+    # (b) four slabs on one card: the per-rank functions run rank by rank
+    for v in pl.VARIANTS:
+        cam = _orbit_camera(pipe, *v)
+        zero()
+        t0 = time.perf_counter()
+        s = fs.sweep_slabs(pipe, SHARD_SLABS, *frames[0], cam, proj)
+        got = fs.finish(pipe, *s[:-1])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sc = counts()
+        txt = _slabs_vs_world(f"sharded (b) {v}", pipe, SHARD_SLABS, s, got, world[v],
+                              (*frames[0], cam, proj))
+        print(f"sharded (b) 256^3, {SHARD_SLABS} slabs of 64, sweep {v}: {txt}; launches "
+              f"{sc}; {secs * 1e3:.1f} ms (host clock, synced); coverage "
+              f"{float(got.hit.float().mean()):.4f} ({card})")
+    try:
+        fs.slab_plan(bpipe, 4)
+        raise RuntimeError("sharded (b): 240^3 over 4 ranks was not refused")
+    except ValueError as e:
+        print(f"sharded (b) 240^3: 4 slabs refused: {e}")
+    zero()
+    s = fs.sweep_slabs(bpipe, 3, *frames[0], mv, proj)
+    got = fs.finish(bpipe, *s[:-1])
+    bc = counts()
+    if bpipe._dense_emit or "integrate_affine" not in bc:
+        raise RuntimeError(f"sharded (b) 240^3: kernel 6 did not run: {bc}")
+    txt = _slabs_vs_world("sharded (b) 240^3", bpipe, 3, s, got, world[240],
+                          (*frames[0], mv, proj))
+    print(f"sharded (b) 240^3, 3 slabs of 80, sweep {pipe._axis(mv)[1]}: {txt}; launches "
+          f"{bc} ({card})")
+    del pipe, bpipe, got, world
+    torch.cuda.empty_cache()
+
+    # (c) the inverter on phase 9's scene at the reference's default 0.007 m
+    secs = []
+    one = inv_mod.CalibrationInverter._invert_one
+
+    def timed_one(self, *a):
+        t0 = time.perf_counter()
+        out = one(self, *a)
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    inv_mod.CalibrationInverter._invert_one = timed_one
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        calib_inverter.main([ks, "-s", "0.007"])
+    finally:
+        inv_mod.CalibrationInverter._invert_one = one
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"inverter: 4 sensors in {wall:.1f} s, per sensor "
+          f"{', '.join(f'{x:.2f}' for x in secs)} s (host clock, synced); device memory peak "
+          f"{peak:.2f} GiB ({card})")
+    bb = Bbox.default()
+    cams = synthetic.make_cameras(4, bb, width=512, height=424)
+    for i, cam in enumerate(cams):
+        got = CalibrationVolume.read(os.path.join(work, f"sensor{i}.cv_xyz_inv"), 4)
+        if tuple(int(r) for r in got.res) != (286, 315, 286) or got.volume.shape != (
+                286, 315, 286, 4):
+            raise RuntimeError(f"inverter: sensor {i} res {got.res}, {got.volume.shape}")
+        ana = synthetic.bake_inverse_volume(cam, bb, (286, 315, 286)).volume
+        g = got.volume
+        both = (g[..., 0] >= 0) & (ana[..., 0] >= 0)
+        dv = np.abs(g[..., :3] - ana[..., :3]).max(-1)[both]
+        med, p99 = float(np.median(dv)), float(np.percentile(dv, 99))
+        ok = np.isfinite(g).all() and med < 0.5 / 128 and p99 < 2.0 / 128
+        print(f"inverter: sensor {i} against the analytic inverse: median {med:.2e}, p99 "
+              f"{p99:.2e}, max {float(dv.max()):.2e} (bounds 0.5 and 2 forward cells, "
+              f"{0.5 / 128:.2e} and {2 / 128:.2e}); inside the frustum "
+              f"{float((g[..., 0] >= 0).mean()):.4f}, masks agree "
+              f"{float(((g[..., 0] >= 0) == (ana[..., 0] >= 0)).mean()):.4f} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"inverter: sensor {i} deviates from the analytic inverse")
+    # the card against the CPU on a small scene (tests/test_torch_inverter.py)
+    with tempfile.TemporaryDirectory(prefix="rgbd_inv_") as small:
+        synthetic.write_reference_scene(small, num_sensors=2, bbox=bb, fwd_res=(16, 24, 16))
+        files = [os.path.join(small, f"sensor{i}.yml") for i in range(2)]
+        res = {}
+        for d in ("cuda", "cpu"):
+            inv = inv_mod.CalibrationInverter(files, bb, device=d)
+            inv.calculate_inverse_volumes((10, 12, 10))
+            res[d] = [v.volume for v in inv.inverted]
+    for i, (g, c) in enumerate(zip(res["cuda"], res["cpu"])):
+        if not np.array_equal(g[..., 0] >= 0, c[..., 0] >= 0):
+            raise RuntimeError(f"inverter: card and CPU frustum masks differ (sensor {i})")
+        dmax = float(np.abs(g - c).max())
+        print(f"inverter: small scene sensor {i}, card vs CPU: masks equal, max deviation "
+              f"{dmax:.2e} (atol 1e-5)")
+        if dmax > 1e-5:
+            raise RuntimeError("inverter: the card disagrees with the CPU on the small scene")
+
+    # (d) the native decoder on phase 9's recorded frames
+    reader = StreamReader(paths, fmt, looping=False)
+    raws = [reader.read_raw()[0] for _ in range(APP_FRAMES)]
+    reader.close()
+    pays = [p for c in raws for p in c]
+    t0 = time.perf_counter()
+    nat = [host_native.decode_dxt1(p, fmt.width_c, fmt.height_c) for p in pays]
+    t_nat = (time.perf_counter() - t0) / len(pays)
+    t0 = time.perf_counter()
+    ref = [dxt.decode_dxt1(p, fmt.width_c, fmt.height_c) for p in pays]
+    t_np = (time.perf_counter() - t0) / len(pays)
+    if not all(np.array_equal(a, b) for a, b in zip(nat, ref)):
+        raise RuntimeError("the native DXT1 decoder differs from io/dxt.py")
+    print(f"native decoder: bit for bit io/dxt.py on {len(pays)} recorded DXT1 planes "
+          f"(512x424); {t_nat * 1e3:.3f} ms a plane vs numpy {t_np * 1e3:.3f} ms (host clock; "
+          f"{os.cpu_count()} host cores) ({card})")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1672,11 +2035,13 @@ def main() -> int:
     # -- 9. the app: compressed scene replay through rgbd_recon_torch.app ---
     # -- 10. the reconstruction strategies (models/) on the same scene -----
     with tempfile.TemporaryDirectory(prefix="rgbd_app_") as work:
-        _app_phase(rig, frames, card, work)
+        scene = _app_phase(rig, frames, card, work)
         _models_phase(rig, frames, card, work, check_integrator, integrator_work, launches)
         _reference_phase(rig, bbox, frames, golden, mv, proj, card, work, drive)
-    # -- 12. fused mode: phases 3-6 above, then the reference path -----------
-    _fused_reference(card)
+        # -- 12. fused mode: phases 3-6 above, then the reference path -------
+        _fused_reference(card)
+        # -- 13. sharded and offline, on phase 3's inputs and phase 9's scene
+        _sharded_phase(rig, bbox, frames, card, work, *scene)
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

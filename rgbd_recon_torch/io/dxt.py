@@ -2,8 +2,8 @@
 
 The reference's recorded streams carry DXT1- or DXT5-compressed color frames
 (NetKinectArray.cpp:118-126). These vectorized numpy codecs are the port's
-host decode and the oracle of the device decode (``ops/wire.py``); the JAX
-package's threaded C++ decoder (``native/dxt.cpp``) is not bound here.
+host decode's oracle (the threaded C++ decoder of ``io/native.py`` is bit
+for bit these) and the oracle of the device decode (``ops/wire.py``).
 
 Block layout (S3TC): 4x4 texel blocks, row-major over the image.
   DXT1 block (8B):  u16 c0, u16 c1 (RGB565 little-endian), u32 row-major

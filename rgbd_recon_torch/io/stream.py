@@ -9,8 +9,10 @@ metadata exactly like NetKinectArray::init (:112-140):
   color: DXT1 (w*h/2 bytes), DXT5 (307200 bytes), or raw RGB888
   depth: u8 (compressed) or f32 meters
 
-The host decode is the numpy codec of ``io/dxt.py``; on the card the app
-uploads the raw payloads (``read_raw``) and decodes them with ``ops/wire.py``.
+The host decode takes ``io/native.best_decoder`` (the threaded C++ decoder
+when it builds, else the numpy codec of ``io/dxt.py``; bit for bit the
+same); on the card the app uploads the raw payloads (``read_raw``) and
+decodes them with ``ops/wire.py``.
 """
 from __future__ import annotations
 
@@ -52,11 +54,13 @@ class FrameFormat:
     def decode_color(self, payload: np.ndarray, as_float: bool = True) -> np.ndarray:
         """-> f32[Hc, Wc, 3] in [0, 1] (or u8 with ``as_float=False``: the
         device normalizes)."""
+        from . import native
+
         if self.compressed_rgb == 1:
-            img = dxt.decode_dxt1(payload, self.width_c, self.height_c)
+            img = native.best_decoder("dxt1")(payload, self.width_c, self.height_c)
         elif self.compressed_rgb == 5:
             # DXT5 at 307200 B covers 640x480 (NetKinectArray.cpp:123)
-            img = dxt.decode_dxt5(payload, 640, 480)
+            img = native.best_decoder("dxt5")(payload, 640, 480)
         else:
             img = payload.reshape(self.height_c, self.width_c, 3)
         if not as_float:

@@ -114,15 +114,19 @@ def phong_shade(view_pos: torch.Tensor, view_normal: torch.Tensor) -> torch.Tens
             + _vec(_LIGHT_SPECULAR, view_pos) * _KS * spec[..., None])
 
 
-def _ray_grid(cam: RenderCamera, bbox: Bbox):
+def _ray_grid(cam: RenderCamera, bbox: Bbox, rows: tuple[int, int] | None = None):
     """Per-pixel ray origin (the camera position) and unit direction in
     volume space, unprojected through the precise camera algebra (TF32
-    would cancel the far plane's w)."""
+    would cancel the far plane's w). ``rows`` (y0, y1): only those screen
+    rows."""
     w, h = cam.width, cam.height
     dev = cam.modelview.device
     v2w = vol_to_world_tensor(bbox, dev)
     mv = cam.modelview.to(torch.float32)
-    yy, xx = torch.meshgrid(_ndc_centers(h, dev), _ndc_centers(w, dev), indexing="ij")
+    ys = _ndc_centers(h, dev)
+    if rows is not None:
+        ys = ys[rows[0]:rows[1]]
+    yy, xx = torch.meshgrid(ys, _ndc_centers(w, dev), indexing="ij")
     one = torch.ones_like(xx)
     mv_vol = pmat(mv, v2w)
     inv = torch.linalg.inv_ex(pmat(cam.proj.to(torch.float32), mv_vol)).inverse
@@ -155,7 +159,8 @@ class RaymarchResult(NamedTuple):
 
 def march(tsdf: torch.Tensor, cam: RenderCamera, bbox: Bbox, limit: float,
           params: RenderParams = RenderParams(), brick_mask: torch.Tensor | None = None,
-          brick_size_vol: float | None = None, brick_extent=None) -> RaymarchResult:
+          brick_size_vol: float | None = None, brick_extent=None,
+          rows: tuple[int, int] | None = None) -> RaymarchResult:
     """Fixed-trip masked raymarch (tsdf_raymarch.fs:62-114) of the f32
     TSDF [Vz, Vy, Vx].
 
@@ -165,9 +170,11 @@ def march(tsdf: torch.Tensor, cam: RenderCamera, bbox: Bbox, limit: float,
     one-brick strides shrinks each ray's [t_near, t_far] to its occupied
     span. ``brick_extent``: the per-axis (x, y, z) span of the brick grid
     in volume units (``res * snapped_brick_size / bbox.size``, over 1 where
-    the brick size does not divide the bbox)."""
+    the brick size does not divide the bbox). ``rows`` (y0, y1): march
+    only those screen rows (every ray is independent, so each row equals
+    the whole march's)."""
     sample_distance = limit * 0.5  # fs:34
-    origin, dirs = _ray_grid(cam, bbox)
+    origin, dirs = _ray_grid(cam, bbox, rows)
     step_vec = dirs * sample_distance
     dev = step_vec.device
     shape = step_vec.shape[:-1]
@@ -292,7 +299,7 @@ def render(tsdf: torch.Tensor, color_volume: torch.Tensor | None, frames, rig,
            cam: RenderCamera, bbox: Bbox, limit: float,
            params: RenderParams = RenderParams(), brick_mask: torch.Tensor | None = None,
            brick_size_vol: float | None = None, brick_extent=None,
-           exact_colors: bool = False) -> RenderOutput:
+           exact_colors: bool = False, rows: tuple[int, int] | None = None) -> RenderOutput:
     """Full draw (≙ ReconIntegration::draw, recon_integration.cpp:176-240):
     march, refine, shade, write color + window-space depth.
 
@@ -301,13 +308,15 @@ def render(tsdf: torch.Tensor, color_volume: torch.Tensor | None, frames, rig,
     converted to float32 channels-last once, here (the JAX function's taps
     promote bf16 to float32 the same way). ``frames`` and ``rig`` (a
     DeviceRig with the cv volumes) are read only by shade mode 3 and the
-    exact color blend (``exact_colors`` or no color volume)."""
+    exact color blend (``exact_colors`` or no color volume). ``rows`` (y0,
+    y1): draw only those screen rows (the row-sharded dense step)."""
     tsdf = tsdf.to(torch.float32).contiguous()
     if color_volume is not None:
         if tuple(color_volume.shape) != tuple(tsdf.shape) + (4,):
             color_volume = color_volume.movedim(1, -1)
         color_volume = color_volume.to(torch.float32).contiguous()
-    res = march(tsdf, cam, bbox, limit, params, brick_mask, brick_size_vol, brick_extent)
+    res = march(tsdf, cam, bbox, limit, params, brick_mask, brick_size_vol, brick_extent,
+                rows)
     pos = res.position
 
     if params.shade_mode == 3:

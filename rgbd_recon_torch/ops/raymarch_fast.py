@@ -21,6 +21,11 @@ emit's z-major color [Vz, 4, Vy, Vx] (``zmajor=True``) and channels-last
 color [Vz, Vy, Vx, 4] (the block-major and table integrators), each beside
 a TSDF [Vz, Vy, Vx] in bf16 or f32. The TPU's 16-slice slab branch is not
 ported.
+
+The multi-card decomposition (``parallel/fast_sharded.py``) sweeps one
+slab of the sweep axis per rank as a logical k-window (``SweepWindow``):
+the window's carry starts from a 2-slice halo of the logically previous
+slab, and the windows' hit planes fold front to back with ``merge_sweep``.
 """
 from __future__ import annotations
 
@@ -78,25 +83,83 @@ class SweepResult(NamedTuple):
     num_samples: torch.Tensor  # f32[Ti, Si]
 
 
-def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
-          limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
-          slab_occupied: np.ndarray | torch.Tensor | None = None,
-          zmajor: bool = True) -> SweepResult:
-    """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
-    color volume ``cvol``: Z-MAJOR [Vz, 4, Vy, Vx] (the dense-emit layout)
-    or, with ``zmajor=False``, channels-last [Vz, Vy, Vx, 4];
-    ``slab_occupied`` bool[n_slices] in physical slice order: a host array
-    skips the empty slices, a device tensor (``slab_occupancy_device``)
-    gates them with no host sync, to the same bits."""
-    dev = tsdf.device
-    coord_perm, array_perm = _permutation(axis)
-    vol = tsdf.permute(array_perm)                     # [S, R, C]
+class SweepWindow(NamedTuple):
+    """A logical k-window of the sweep over a LOCAL slab of the sweep axis
+    (JAX ``raymarch_fast.SweepWindow``). The only state the sweep carries
+    from slice to slice is (prev_d, prev_c, prev_g), and prev_g's sweep
+    component needs the density one slice further back, so the window's
+    carry is rebuilt from the two slices before it.
+
+    k0: logical start slice; ns_total: the global slice count;
+    halo_d2 / halo_d1: density slices [R, C] at logical k0-2 / k0-1 (in
+    the sweep's permuted frame); halo_c1: the color slice [4, R, C] at
+    k0-1; halo_valid: False when k0 == 0 (the clear-value start). As in
+    JAX, the start reads the halo slices whether or not their brick layer
+    was skipped (ROADMAP queue 3)."""
+
+    k0: int
+    ns_total: int
+    halo_d2: torch.Tensor
+    halo_d1: torch.Tensor
+    halo_c1: torch.Tensor
+    halo_valid: bool
+
+
+def merge_sweep(near: SweepResult, far: SweepResult) -> SweepResult:
+    """Front-to-back composition of two adjacent sweep windows: the nearer
+    window's hit wins, rays still active take the farther window's state.
+    Associative; fold in logical k order."""
+    h = near.hit > 0.5
+    return SweepResult(
+        hit=torch.maximum(near.hit, far.hit),
+        hit_s=torch.where(h, near.hit_s, far.hit_s),
+        hit_color=torch.where(h[..., None], near.hit_color, far.hit_color),
+        hit_grad=torch.where(h[..., None], near.hit_grad, far.hit_grad),
+        base_extent=near.base_extent,
+        eye_p=near.eye_p,
+        num_samples=near.num_samples + torch.where(h, 0.0, far.num_samples),
+    )
+
+
+def sweep_planes(tsdf: torch.Tensor, cvol: torch.Tensor, axis: int,
+                 zmajor: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The volumes in the sweep's frame, as views: density [S, R, C] and
+    color [S, 4, R, C] (S the sweep axis); ``cvol`` z-major or, with
+    ``zmajor=False``, channels-last."""
+    array_perm = _permutation(axis)[1]
     if zmajor:
         m = {0: 0, 1: 2, 2: 3}
         col = cvol.permute((m[array_perm[0]], 1, m[array_perm[1]], m[array_perm[2]]))
     else:
         col = cvol.permute((array_perm[0], 3, array_perm[1], array_perm[2]))
-    ns, nr, nc = vol.shape
+    return tsdf.permute(array_perm), col
+
+
+def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
+          limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
+          slab_occupied: np.ndarray | torch.Tensor | None = None,
+          zmajor: bool = True, window: SweepWindow | None = None) -> SweepResult:
+    """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
+    color volume ``cvol``: Z-MAJOR [Vz, 4, Vy, Vx] (the dense-emit layout)
+    or, with ``zmajor=False``, channels-last [Vz, Vy, Vx, 4];
+    ``slab_occupied`` bool[n_slices] in physical slice order: a host array
+    skips the empty slices, a device tensor (``slab_occupancy_device``)
+    gates them with no host sync, to the same bits.
+
+    ``window``: sweep only a logical k-window over a local slab
+    (``SweepWindow``): ``tsdf``/``cvol`` then hold the slab's slices
+    (physically contiguous), ``slab_occupied`` the slab's flags, and the
+    result folds with ``merge_sweep``. The grid extents and the step use
+    the global slice count."""
+    dev = tsdf.device
+    coord_perm, _ = _permutation(axis)
+    vol, col = sweep_planes(tsdf, cvol, axis, zmajor)
+    ns_local, nr, nc = vol.shape
+    ns = window.ns_total if window is not None else ns_local
+    k0 = window.k0 if window is not None else 0
+    # physical index of the slab's first slice in the global volume
+    # (logical k -> global physical ns-1-k when flipped)
+    p0 = (ns - k0 - ns_local) if flip else k0
 
     v2w = vol_to_world_tensor(bbox, dev)
     with full_f32():     # inv_ex: inv's numbers without its host-side singularity check
@@ -127,17 +190,27 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
     ds = 1.0 / ns
     bf16 = torch.bfloat16
 
-    def resample(k_phys, sigma):
-        """[5, Ti, Si] (density, rgba) of slice k_phys at p = e + sigma (g - e)."""
+    def resample(sl_d, sl_c, sigma):
+        """[5, Ti, Si] (density, rgba) of a slice pair ([R, C], [4, R, C])
+        at p = e + sigma (g - e)."""
         pr = eye_p[1] + sigma * (r_grid - eye_p[1])
         pc = eye_p[2] + sigma * (c_grid - eye_p[2])
         wr = _bf16(_hat_rows(pr * nr - 0.5, nr))         # [Ti, R]
         wc = _bf16(_hat_rows(pc * nc - 0.5, nc))         # [Si, C]
-        both = torch.cat([vol[k_phys][None].to(bf16), col[k_phys].to(bf16)], 0).to(torch.float32)
+        both = torch.cat([sl_d[None].to(bf16), sl_c.to(bf16)], 0).to(torch.float32)
         with full_f32():
             t = wr @ both.permute(1, 0, 2).reshape(nr, 5 * nc)          # [Ti, 5C]
             out = _bf16(t).reshape(ti * 5, nc) @ wc.T                   # [5Ti, Si]
         return out.reshape(ti, 5, si).permute(1, 0, 2)
+
+    def sigma_of(k):
+        s_k = (k + 0.5) * ds
+        return s_k, (s_k - es) / denom
+
+    def gradient(d, prev_d, sigma):
+        gr = (torch.roll(d, -1, 0) - torch.roll(d, 1, 0)) / (dr2 * sigma + 1e-12)
+        gc = (torch.roll(d, -1, 1) - torch.roll(d, 1, 1)) / (dc2 * sigma + 1e-12)
+        return torch.stack([(d - prev_d) / ds, gr, gc], dim=0)
 
     hit_s = torch.full((ti, si), -1.0, device=dev)
     hit_c = torch.zeros((4, ti, si), dtype=bf16, device=dev)
@@ -147,24 +220,29 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
                   torch.zeros((4, ti, si), dtype=bf16, device=dev),
                   torch.zeros((3, ti, si), dtype=bf16, device=dev))
     prev_d, prev_c, prev_g = prev_clear
+    if window is not None and window.halo_valid:
+        # the windowed start: the carry as of logical k0, rebuilt from the
+        # halo slices at k0-1 and k0-2 by the same resample arithmetic
+        _, sg1 = sigma_of(k0 - 1)
+        _, sg2 = sigma_of(k0 - 2)
+        smp1 = resample(window.halo_d1, window.halo_c1, sg1)
+        d2 = resample(window.halo_d2, torch.zeros_like(window.halo_c1), sg2)[0]
+        prev_d, prev_c = smp1[0], smp1[1:5].to(bf16)
+        prev_g = gradient(prev_d, d2, sg1).to(bf16)
     gated = isinstance(slab_occupied, torch.Tensor)
-    for k in range(ns):
-        k_phys = (ns - 1 - k) if flip else k
+    for k in range(k0, k0 + ns_local):
+        k_phys = ((ns - 1 - k) if flip else k) - p0
         active = hit_s < 0.0
         if slab_occupied is not None and not gated and not slab_occupied[k_phys]:
             # an empty slice: no crossing, the carry decays to the clear values
             nsamp = nsamp + active.to(torch.float32)
             prev_d, prev_c, prev_g = prev_clear
             continue
-        s_k = (k + 0.5) * ds
-        sigma = (s_k - es) / denom
-        smp = resample(k_phys, sigma)
+        s_k, sigma = sigma_of(k)
+        smp = resample(vol[k_phys], col[k_phys], sigma)
         d = smp[0]
         c = smp[1:5]
-        gr = (torch.roll(d, -1, 0) - torch.roll(d, 1, 0)) / (dr2 * sigma + 1e-12)
-        gc = (torch.roll(d, -1, 1) - torch.roll(d, 1, 1)) / (dc2 * sigma + 1e-12)
-        gs = (d - prev_d) / ds
-        g = torch.stack([gs, gr, gc], dim=0)
+        g = gradient(d, prev_d, sigma)
         crossed = active & (d > 0.0) & (k > 0)
         if gated:           # an empty slice crosses nothing
             on = slab_occupied[k_phys]

@@ -22,7 +22,7 @@ import torch
 
 from ..utils.math import full_f32
 from .tsdf import TsdfConfig
-from .tsdf_fast import BRICK
+from .tsdf_fast import BRICK, IntegrationTables
 from .warp import _gl_resize_weights_np
 
 B3 = BRICK ** 3
@@ -170,6 +170,15 @@ def bake_affine(rig, cfg: TsdfConfig, device: torch.device | str = "cuda") -> Af
     )
 
 
+def expand_affine(tables: AffineTables) -> IntegrationTables:
+    """The quadratic model evaluated at every voxel: the dense block-major
+    table (float32, TF32 off; a test oracle)."""
+    basis = torch.as_tensor(_brick_basis(), device=tables.coeffs.device)
+    with full_f32():
+        pos = torch.einsum("knab,bv->knva", tables.coeffs[..., :3, :], basis)
+    return IntegrationTables(pos_blocked=pos)
+
+
 def _hull_basis() -> np.ndarray:
     """f32[NBASIS, 27]: the quadratic basis at the 27 points {-7.5, 0, 7.5}^3
     of a brick (footprint hull for window placement and sizing)."""
@@ -277,6 +286,19 @@ def bake_cull(tables: AffineTables, h: int, w: int, limit: float = 0.01,
     edge = (u_lo < 0.0) | (u_hi > w - 1.0) | (v_lo < 0.0) | (v_hi > h - 1.0)
     valid = tables.coeffs[..., 0, 0] >= 0.0
     return CullBake(d_lo, d_hi, cya, cyb, cxa, cxb, wide, edge, valid)
+
+
+def block_depth_cull(mask16: torch.Tensor, tables: AffineTables, depth_n: torch.Tensor,
+                     quality: torch.Tensor, silhouette: torch.Tensor | None = None,
+                     limit: float = 0.01, cell: int = 8, shifts: int = 5,
+                     margin: float = 1.25):
+    """The depth-band cull without a session bake: ``bake_cull`` at the
+    depth maps' size, then ``block_depth_cull_baked`` (the JAX function is
+    the same bake-then-apply wrapper). Returns (mask16 & keep, keep, cls)."""
+    h, w = depth_n.shape[1:]
+    bake = bake_cull(tables, h, w, limit, cell, shifts, margin)
+    return block_depth_cull_baked(mask16, bake, depth_n, quality, silhouette, limit, cell,
+                                  shifts, margin)
 
 
 def block_depth_cull_baked(mask16: torch.Tensor, bake: CullBake,

@@ -53,6 +53,21 @@ def _to_blocked(pos: torch.Tensor) -> torch.Tensor:
     return p.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(k, nz * ny * nx, B3, c).contiguous()
 
 
+def resize3d_gl(vol: torch.Tensor, out_res: tuple[int, int, int]) -> torch.Tensor:
+    """Separable GL-exact trilinear resize [D, H, W, C] -> out_res (d, h, w
+    order): three float32 products with TF32 off (``sample3d`` at the voxel
+    centers of the new grid)."""
+    d2, h2, w2 = out_res
+
+    def wts(n_src, n_dst):
+        return torch.as_tensor(_gl_resize_weights_np(n_src, n_dst), device=vol.device)
+
+    with full_f32():
+        out = torch.einsum("Dd,dhwc->Dhwc", wts(vol.shape[0], d2), vol)
+        out = torch.einsum("Hh,Dhwc->DHwc", wts(vol.shape[1], h2), out)
+        return torch.einsum("Ww,DHwc->DHWc", wts(vol.shape[2], w2), out)
+
+
 def precompute_tables(rig, cfg, device: torch.device | str = "cuda") -> IntegrationTables:
     """The voxel -> sensor warp of every sensor at the volume res
     (tsdf_integration.vs:31 hoisted out of the frame loop), on ``device``."""

@@ -1,7 +1,8 @@
 """Camera / bounding-box math (mirrors ``rgbd_recon_tpu/utils/math.py``).
 
-``Bbox``, ``perspective`` and ``look_at`` are the numpy originals, copied
-so the port imports nothing of the JAX package. ``pmat``
+``Bbox``, ``perspective``, ``look_at`` and ``transform_point`` are the
+numpy originals, copied so the port imports nothing of the JAX package.
+``pmat``
 is the torch form of the precise small-matrix product: float32 with TF32
 switched off (the JAX version asks for ``Precision.HIGHEST``; unprojecting
 the far plane cancels to 0/NaN at reduced precision).
@@ -64,6 +65,12 @@ def look_at(eye, center, up) -> np.ndarray:
     m[2, :3] = -fwd
     m[:3, 3] = -m[:3, :3] @ eye
     return m.astype(np.float32)
+
+
+def transform_point(mat: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """Apply a 4x4 row-major matrix to a 3-point with w-divide."""
+    ph = mat @ np.append(np.asarray(p, np.float64), 1.0)
+    return (ph[:3] / ph[3]).astype(np.float32)
 
 
 _F32_LOCK = threading.Lock()

@@ -679,3 +679,70 @@ def test_fused_variants_async_cuda(dev):
     for v, cam in cams.items():
         _assert_same(pipe.step(depth, color, cam, proj), staged.step(depth, color, cam, proj),
                      v)
+
+
+def _variant_camera(pipe, axis, flip):
+    from rgbd_recon_torch.utils.math import look_at
+
+    center = (pipe.bbox.min + pipe.bbox.max) * 0.5
+    d = np.array([0.25, 0.35, 0.3], np.float32)
+    d[axis] = 3.0 if flip else -3.0
+    mv = look_at(center + d, center, [0, 0, 1] if axis == 1 else [0, 1, 0])
+    assert pipe._axis(mv)[1] == (axis, flip)
+    return mv
+
+
+def _assert_frames_equal(a, b, fields=("color", "depth", "hit", "tsdf", "occupied_ratio",
+                                       "num_samples", "occupied_bricks")):
+    for f in fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_sharded_world_of_one_cuda(dev):
+    """A world of one under NCCL at 128^3 (kernel 1): fast_sharded_step bit
+    for bit FramePipeline.step with the cull off, kernels 1-4 launched;
+    ReplayDriver (B = 2) bit for bit two steps; sharded_step bit for bit the
+    reference path. The process group is destroyed after."""
+    import torch.distributed as dist
+
+    from rgbd_recon_torch.parallel import fast_sharded as fs
+    from rgbd_recon_torch.parallel.replay import ReplayDriver
+    from rgbd_recon_torch.parallel.sharding import make_mesh, sharded_step
+
+    mesh = make_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size == 1
+        pipe, depth, color, mv, proj = _small_pipeline(dev, brick_cull=False)
+        step = fs.fast_sharded_step(pipe, mesh)
+        want = pipe.step(depth, color, mv, proj)
+        before = {k: native.KERNELS[k].launches for k in
+                  ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_dense")}
+        got = step(depth, color, mv, proj)
+        torch.cuda.synchronize()
+        assert all(native.KERNELS[k].launches > c for k, c in before.items())
+        _assert_frames_equal(got, want)
+        out = ReplayDriver(pipe, mesh).step(np.stack([depth, depth * 1.001]),
+                                            np.stack([color, color]), mv, proj)
+        for i, s in enumerate((1.0, 1.001)):
+            item = pipe.step(depth * s, color, mv, proj)
+            for f in ("color", "depth", "hit", "tsdf"):
+                assert torch.equal(getattr(out, f)[i], getattr(item, f)), (i, f)
+        ref, depth, color, mv, proj = _small_pipeline(dev, n=64, fast_path=False)
+        got = sharded_step(ref, mesh)(depth, color, mv, proj)
+        _assert_frames_equal(got, ref.step(depth, color, mv, proj),
+                             ("color", "depth", "hit", "tsdf", "num_samples"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_four_slabs_cuda(dev):
+    """4 z-slabs of 16 at 64^3, run rank by rank on the card, bit for bit the
+    single step at every sweep variant."""
+    from rgbd_recon_torch.parallel import fast_sharded as fs
+    from rgbd_recon_torch.runtime.pipeline import VARIANTS
+
+    pipe, depth, color, _, proj = _small_pipeline(dev, n=64, brick_cull=False)
+    for v in VARIANTS:
+        mv = _variant_camera(pipe, *v)
+        _assert_frames_equal(fs.run_slabs(pipe, 4, depth, color, mv, proj),
+                             pipe.step(depth, color, mv, proj))
