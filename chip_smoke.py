@@ -151,7 +151,26 @@ a result line):
               analytic inverse (median and p99 within 0.5 and 2 forward
               cells), the frustum share; the card against the CPU on a small
               scene (masks equal, atol 1e-5). (d) the native DXT decoder bit
-              for bit ``io/dxt.py`` on phase 9's recorded planes, both timed.
+              for bit ``io/dxt.py`` on phase 9's recorded planes, both timed;
+14. jax       the card's frame against the JAX package's own outputs at the
+              bench size, stored in tests/data/torch_bench_golden.npz
+              (``rgbd_recon_torch/utils/bench_golden.py``): the file loaded
+              and the sha256 of phase 3's rig and frame 0 checked against its
+              digests (a missing file or a differing digest fails the run);
+              then on frame 0, each with the counters at 0 and its kernels
+              required: (a) the default 256^3 pipeline (kernels 1-4) against
+              reference A, JAX's TPU formulation, stage by stage: the
+              preprocessed fields at 65,536 drawn pixels, brick counts and
+              the culled mask, the TSDF and the color volume at 262,144
+              drawn voxels, and at five views (sweep axes 2, 2, 2, 0, 1) the
+              sweep planes and the screen before and after hole filling;
+              its ``step`` at the default camera the stages' frame bit for
+              bit; (b) ``use_pallas=False`` (kernel 7's window mode) against
+              reference B, JAX's own CPU frame: TSDF within 1e-5, screen at
+              render parity; (c) ``use_affine=False`` (kernel 7's table
+              mode) against B at the integrator bound; (d) 240^3 (kernel 6)
+              against reference C. One line a comparison (its deviation
+              beside its bound), then the phase's seconds.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -369,38 +388,6 @@ def _profile_frame(pipe, frame, mv, proj, card: str) -> None:
           f"{sum(e.count for e in rows)} device ops ({card})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-
-
-def _bench_inputs(num_sensors, width, height, fwd_res, inv_res, seed, frames=NUM_FRAMES,
-                  distortion=None, device="cpu"):
-    """The synthetic rig (distorted cameras computing on ``device``) and
-    ``frames`` distinct noisy copies of its rendered sphere-scene frames."""
-    import numpy as np
-    from rgbd_recon_torch.calibration import synthetic
-    from rgbd_recon_torch.utils.math import Bbox
-
-    bbox = Bbox.default()
-    built = synthetic.synthetic_rig(num_sensors=num_sensors, bbox=bbox, fwd_res=fwd_res,
-                                    inv_res=inv_res, width=width, height=height,
-                                    distortion=distortion, device=device)
-    rig, cams, ccams = built if distortion is not None else (*built, None)
-    depth, color = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox),
-                                           color_cams=ccams)
-    rng = np.random.default_rng(seed)
-    out = [(depth + rng.uniform(0, 2e-3, depth.shape).astype(np.float32),
-            np.clip(color + rng.uniform(0, 1e-2, color.shape).astype(np.float32), 0, 1))
-           for _ in range(frames)]
-    return rig, bbox, out
-
-
-def _bench_config(bbox, n: int, **over):
-    import numpy as np
-    from rgbd_recon_torch.runtime import pipeline as pl
-
-    res = n if isinstance(n, tuple) else (n, n, n)
-    return pl.PipelineConfig(render_width=1280, render_height=720, tsdf_res=res,
-                             voxel_size=float(np.max(bbox.size) / res[0]),
-                             brick_size=0.1, num_lods=6, **over)
 
 
 def _bound(nbytes: float, ops: float):
@@ -621,6 +608,7 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
     import torch
     from rgbd_recon_torch import app as app_mod
     from rgbd_recon_torch import models, native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.ops import tsdf_sparse
     from rgbd_recon_torch.ops.raymarch import RenderCamera
     from rgbd_recon_torch.ops.tsdf_fast import pack_frames
@@ -753,8 +741,8 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
 
     # parity: each strategy on the card against itself on the CPU, on
     # phase 8's small frame (3 sensors at 256x212, 320x240)
-    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
-                                         frames=1)
+    srig, sbbox, sframes = bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                        frames=1)
     voxel = float(np.max(sbbox.size) / 64)
     cfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(64, 64, 64),
                             voxel_size=voxel, brick_size=0.2)
@@ -815,6 +803,7 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
     import torch
     from rgbd_recon_torch import app as app_mod
     from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.runtime import pipeline as pl
     from rgbd_recon_torch.scripts import golden_parity
     from rgbd_recon_torch.utils.metrics import render_parity, render_parity_passes
@@ -930,8 +919,8 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
     del pipe, outs, noskip
 
     # (c) card against CPU: phase 8's small frame through the reference path
-    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
-                                         frames=1)
+    srig, sbbox, sframes = bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                        frames=1)
     scfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
                              voxel_size=float(np.max(sbbox.size) / 128), sweep_res=(256, 256),
                              fast_path=False)
@@ -1146,10 +1135,11 @@ def _fused_reference(card: str) -> None:
     (one graph) against staged on the card."""
     import numpy as np
     import torch
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.runtime import pipeline as pl
 
-    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
-                                         frames=FUSED_FRAMES)
+    srig, sbbox, sframes = bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                        frames=FUSED_FRAMES)
     scfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
                              voxel_size=float(np.max(sbbox.size) / 128), sweep_res=(256, 256),
                              fast_path=False)
@@ -1280,6 +1270,7 @@ def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt)
     from rgbd_recon_torch.parallel.sharding import make_mesh, sharded_step
     from rgbd_recon_torch.runtime import pipeline as pl
     from rgbd_recon_torch.scripts import calib_inverter
+    from rgbd_recon_torch.utils.bench_golden import bench_config
     from rgbd_recon_torch.utils.math import Bbox
 
     dev = torch.device("cuda")
@@ -1298,8 +1289,8 @@ def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt)
     mesh = make_mesh(device="cuda")
     print(f"sharded (a): process group {dist.get_backend()} world {mesh.size} on {mesh.device}")
     try:
-        pipe = pl.FramePipeline(rig, _bench_config(bbox, n, brick_cull=False), device=dev)
-        base = pl.FramePipeline(rig, _bench_config(bbox, n), device=dev)
+        pipe = pl.FramePipeline(rig, bench_config(bbox, n, brick_cull=False), device=dev)
+        base = pl.FramePipeline(rig, bench_config(bbox, n), device=dev)
         mv, proj = pipe.default_camera()
         step = fs.fast_sharded_step(pipe, mesh)
         want = pipe.step(*frames[0], mv, proj)
@@ -1341,13 +1332,13 @@ def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt)
         # the world-of-one frames (b) holds the slabs to: the six sweep
         # variants at 256^3, and the z camera at 240^3 (kernel 6)
         world = {v: step(*frames[0], _orbit_camera(pipe, *v), proj) for v in pl.VARIANTS}
-        bpipe = pl.FramePipeline(rig, _bench_config(bbox, 240, brick_cull=False), device=dev)
+        bpipe = pl.FramePipeline(rig, bench_config(bbox, 240, brick_cull=False), device=dev)
         world[240] = fs.fast_sharded_step(bpipe, mesh)(*frames[0], mv, proj)
         del drv, out, base, step, got, want
 
         # sharded_step at phase 11 (c)'s 128^3 against the reference path
-        srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
-                                             frames=1)
+        srig, sbbox, sframes = synthetic.bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48),
+                                                      SEED, frames=1)
         scfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128,) * 3,
                                  voxel_size=float(np.max(sbbox.size) / 128),
                                  sweep_res=(256, 256), fast_path=False)
@@ -1482,6 +1473,105 @@ def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt)
           f"{os.cpu_count()} host cores) ({card})")
 
 
+def _jax_phase(rig, frames, card: str) -> None:
+    """Phase 14 (module docstring): the card's frame against the JAX
+    package's outputs stored in tests/data/torch_bench_golden.npz.
+    ``rig``/``frames``: phase 3's."""
+    import numpy as np
+    import torch
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils import bench_golden as bg
+
+    t_phase = time.perf_counter()
+    gold = bg.load()
+    depth, color = frames[0]
+    bg.check_digests(gold, rig, depth, color)
+    print(f"jax: {bg.PATH} loaded; the {len(rig) + 2} inputs hash to its sha256 digests")
+    bbox = rig.bbox
+    rows = []
+
+    def run(label, cfg, need, frame_fn):
+        """Build the pipeline, counters to 0, ``frame_fn(pipe)``, counters
+        read: every kernel of ``need`` must have launched."""
+        pipe = pl.FramePipeline(rig, cfg, device="cuda")
+        for k in native.KERNELS.values():
+            k.launches = 0
+        got = frame_fn(pipe)
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in native.KERNELS.items() if k.launches}
+        missing = [name for name in need if not counts.get(name)]
+        print(f"jax {label}: launches {counts}")
+        if missing:
+            raise RuntimeError(f"jax {label}: kernels never launched: {missing}")
+        return pipe, got
+
+    def hold(label, new_rows):
+        for r in new_rows:
+            print(r.line(f"jax {label}"))
+        rows.extend((label, r) for r in new_rows)
+
+    def step_screen(out):
+        """A frame's output (its color hole-filled) as screen planes."""
+        return bg.Screen(out.color.float().cpu().numpy(), out.depth.float().cpu().numpy(),
+                         out.hit.cpu().numpy(), None)
+
+    # (a) the default pipeline (kernels 1-4) against reference A, stage by
+    # stage at the five views; its step at the default camera is the
+    # stages' frame bit for bit
+    label = "A 256^3 kernels 1-4"
+    pipe, got = run(label, bg.bench_config(bbox, 256), PATH_KERNELS + ("integrate_dense",),
+                    lambda p: bg.port_stages(p, depth, color, gold))
+    out = pipe.step(depth, color, *bg.camera("default", bbox))
+    filled = got["views"]["default"]["screen"].filled
+    same = (np.array_equal(out.color.float().cpu().numpy(), filled)
+            and np.array_equal(out.tsdf.float().cpu().numpy(), got["tsdf"]))
+    if not same:
+        raise RuntimeError("jax: FramePipeline.step differs from its stages' frame")
+    hold(label, bg.compare_pre(gold, got) + bg.compare_bricks(gold, got)
+         + [bg.compare_tsdf(gold["A/tsdf"], got["tsdf"]), bg.compare_color(gold, got)])
+    for view, v in got["views"].items():
+        ref = bg.screen(gold, f"A/{view}/")
+        hold(label, [bg.compare_sweep(gold, view, v),
+                     bg.compare_screen(f"{view} screen", ref, v["screen"]),
+                     bg.compare_screen(f"{view} screen hole-filled", bg.filled(ref),
+                                       bg.filled(v["screen"]))])
+    del pipe, got, out
+    mv, proj = bg.camera("default", bbox)
+    ref_b = bg.filled(bg.screen(gold, "B/default/"))
+
+    # (b) kernel 7's window mode (use_pallas=False): reference B's formulation
+    label = "B 256^3 kernel 7 window mode"
+    _, out = run(label, bg.bench_config(bbox, 256, use_pallas=False),
+                 PATH_KERNELS + ("integrate_sparse_window",),
+                 lambda p: p.step(depth, color, mv, proj))
+    hold(label, [bg.compare_tsdf(gold["B/tsdf"], out.tsdf.float().cpu().numpy(), exact_to=1e-5),
+                 bg.compare_screen("screen hole-filled", ref_b, step_screen(out))])
+    # (c) kernel 7's table mode (use_affine=False) against reference B
+    label = "B 256^3 kernel 7 table mode"
+    _, out = run(label, bg.bench_config(bbox, 256, use_affine=False),
+                 PATH_KERNELS + ("integrate_sparse",), lambda p: p.step(depth, color, mv, proj))
+    hold(label, [bg.compare_tsdf(gold["B/tsdf"], out.tsdf.float().cpu().numpy()),
+                 bg.compare_screen("screen hole-filled", ref_b, step_screen(out))])
+    # (d) the block-major integrator (kernel 6) at 240^3 against reference C
+    label = "C 240^3 kernel 6"
+    _, out = run(label, bg.bench_config(bbox, 240), PATH_KERNELS + ("integrate_affine",),
+                 lambda p: p.step(depth, color, mv, proj))
+    n_occ = int(out.occupied_bricks)
+    hold(label, [bg.compare_tsdf(gold["C/tsdf"], out.tsdf.float().cpu().numpy()),
+                 bg.Row("occupied 16^3 bricks", f"{n_occ} vs {int(gold['C/n_occ'])}", "equal",
+                        n_occ == int(gold["C/n_occ"])),
+                 bg.compare_screen("screen hole-filled", bg.filled(bg.screen(gold, "C/default/")),
+                                   step_screen(out))])
+    del out
+    torch.cuda.empty_cache()
+    bad = [f"{label}: {r.stage}" for label, r in rows if not r.ok]
+    print(f"jax: {len(rows) - len(bad)} of {len(rows)} comparisons within their bounds; "
+          f"phase 14: {time.perf_counter() - t_phase:.1f} s ({card})")
+    if bad:
+        raise RuntimeError(f"the card's frame disagrees with the JAX package's outputs: {bad}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1493,11 +1583,13 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
     from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp, raymarch_fast as rmf
     from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse, warp as warp_ops
     from rgbd_recon_torch.ops.tsdf_fast import (occupied_bricks, occupied_list, pack_frames,
                                                 pack_planes)
     from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.bench_golden import bench_config
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1648,11 +1740,11 @@ def main() -> int:
     # -- 3. pinhole 256^3 ---------------------------------------------------
     t0 = time.perf_counter()
     # APP_FRAMES distinct frames: phases 3-6 take the first 4, the app phase all
-    rig, bbox, frames = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED,
-                                      frames=APP_FRAMES)
+    rig, bbox, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED,
+                                     frames=APP_FRAMES)
     print(f"pinhole rig + frames: {time.perf_counter() - t0:.1f} s")
     n = 256
-    cfg = _bench_config(bbox, n)
+    cfg = bench_config(bbox, n)
     pipe = pl.FramePipeline(rig, cfg, device=dev, log=lambda s: print(f"  {s}"))
     mv, proj = pipe.default_camera()
     recs = warm_up("pinhole", pipe, frames[0], mv, proj, {
@@ -1780,8 +1872,9 @@ def main() -> int:
 
     # -- 4. distorted rig, 256^3 (the piecewise warp, kernel 5) --------------
     t0 = time.perf_counter()
-    drig, dbbox, dframes = _bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
-                                         SEED, distortion=DISTORT, device=dev)
+    drig, dbbox, dframes = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
+                                        SEED, frames=NUM_FRAMES, distortion=DISTORT,
+                                        device=dev)
     print(f"distorted rig + frames (float64 on the card): {time.perf_counter() - t0:.1f} s")
     logs = []
 
@@ -1790,7 +1883,7 @@ def main() -> int:
         print(f"  {s}")
 
     t0 = time.perf_counter()
-    dcfg = _bench_config(dbbox, n)
+    dcfg = bench_config(dbbox, n)
     pipe = pl.FramePipeline(drig, dcfg, device=dev, log=dlog)
     print(f"distorted: affine bake {time.perf_counter() - t0:.1f} s")
     recs = warm_up("distorted", pipe, dframes[0], mv, proj, {
@@ -1847,7 +1940,7 @@ def main() -> int:
     del pipe, recs, pcalls, D, a, b, r, got, want, dframes, outs
 
     # -- 5. block-major integrator: pinhole rig at 240^3 (kernel 6) ----------
-    bcfg = _bench_config(bbox, 240)
+    bcfg = bench_config(bbox, 240)
     pipe = pl.FramePipeline(rig, bcfg, device=dev, log=lambda s: print(f"  {s}"))
     recs = warm_up("block-major", pipe, frames[0], mv, proj,
                    {"integrate_affine": (pl, "integrate_affine")})
@@ -1959,7 +2052,7 @@ def main() -> int:
     del pipe, recs, aargs, kargs, packed, slots, fr, aff, m16, woff, vbm, cbm, dense_v, dense_c
 
     # -- 6. table integrator: pinhole rig at 256^3, use_affine=False (kernel 7)
-    tcfg_p = _bench_config(bbox, n, use_affine=False)
+    tcfg_p = bench_config(bbox, n, use_affine=False)
     t0 = time.perf_counter()
     pipe = pl.FramePipeline(rig, tcfg_p, device=dev, log=lambda s: print(f"  {s}"))
     torch.cuda.synchronize()
@@ -1988,8 +2081,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. the gather tier, once: a small distorted frame -------------------
-    grig, gbbox, gframes = _bench_inputs(2, 128, 104, (32, 48, 32), (32, 32, 32), SEED,
-                                         frames=1, distortion=DISTORT, device=dev)
+    grig, gbbox, gframes = bench_inputs(2, 128, 104, (32, 48, 32), (32, 32, 32), SEED,
+                                        frames=1, distortion=DISTORT, device=dev)
     logs = []
     gcfg = pl.PipelineConfig(render_width=320, render_height=240, tsdf_res=(128, 128, 128),
                              voxel_size=float(np.max(gbbox.size) / 128),
@@ -2006,8 +2099,8 @@ def main() -> int:
     del pipe, o
 
     # -- 8. small-frame parity: CUDA path vs plain path on the CPU ----------
-    srig, sbbox, sframes = _bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
-                                         frames=1)
+    srig, sbbox, sframes = bench_inputs(3, 256, 212, (48, 64, 48), (48, 48, 48), SEED,
+                                        frames=1)
     scfg = pl.PipelineConfig(render_width=320, render_height=240,
                              tsdf_res=(128, 128, 128),
                              voxel_size=float(np.max(sbbox.size) / 128),
@@ -2042,6 +2135,8 @@ def main() -> int:
         _fused_reference(card)
         # -- 13. sharded and offline, on phase 3's inputs and phase 9's scene
         _sharded_phase(rig, bbox, frames, card, work, *scene)
+    # -- 14. the card's frame against the JAX package's stored outputs -----
+    _jax_phase(rig, frames, card)
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -585,6 +585,26 @@ def render_frames(cams: Sequence, scene: SphereScene, color_cams=None):
     return depth, color
 
 
+def bench_inputs(num_sensors: int, width: int, height: int, fwd_res, inv_res, seed: int,
+                 frames: int = 4, distortion: float | None = None, device="cpu"):
+    """The bench inputs of ``chip_smoke.py``: the synthetic rig over
+    ``Bbox.default()`` (distorted cameras computing on ``device``) and
+    ``frames`` distinct noisy copies of its rendered sphere-scene frames
+    (uniform depth noise up to 2 mm, color noise up to 1e-2, drawn from
+    ``seed``). Returns (rig, bbox, [(depth, color), ...])."""
+    bbox = Bbox.default()
+    built = synthetic_rig(num_sensors=num_sensors, bbox=bbox, fwd_res=fwd_res,
+                          inv_res=inv_res, width=width, height=height,
+                          distortion=distortion, device=device)
+    rig, cams, ccams = built if distortion is not None else (*built, None)
+    depth, color = render_frames(cams, SphereScene.default(bbox), color_cams=ccams)
+    rng = np.random.default_rng(seed)
+    out = [(depth + rng.uniform(0, 2e-3, depth.shape).astype(np.float32),
+            np.clip(color + rng.uniform(0, 1e-2, color.shape).astype(np.float32), 0, 1))
+           for _ in range(frames)]
+    return rig, bbox, out
+
+
 # --------------------------------------------------------------------------
 # reference-format scene fixtures
 

@@ -127,9 +127,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist
     from rgbd_recon_torch.ops.tsdf_fast import BRICK, occupied_bricks, pack_frames
     from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.bench_golden import bench_config
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -137,11 +139,11 @@ def main() -> int:
     print(f"card: {card}")
     lib = _build(native)
 
-    rig, bbox, frames = cs._bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
-                                         cs.SEED, frames=1)
+    rig, bbox, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
+                                     cs.SEED, frames=1)
     calls = {}
     for n, name in ((256, "integrate_dense"), (240, "integrate_affine")):
-        pipe = pl.FramePipeline(rig, cs._bench_config(bbox, n), device="cuda")
+        pipe = pl.FramePipeline(rig, bench_config(bbox, n), device="cuda")
         mv, proj = pipe.default_camera()
         rec = cs.Recorder(pl, name)
         try:

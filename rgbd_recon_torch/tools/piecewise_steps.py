@@ -201,8 +201,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.ops import bricks, warp as warp_ops
     from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.bench_golden import bench_config
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -219,10 +221,10 @@ def main() -> int:
     for label, distortion in (("pinhole", None), ("distorted", cs.DISTORT)):
         if only == {"pinhole": "5", "distorted": "4"}[label]:
             continue
-        rig, bbox, frames = cs._bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
-                                             cs.SEED, frames=1, distortion=distortion,
-                                             device=dev if distortion else "cpu")
-        pipe = pl.FramePipeline(rig, cs._bench_config(bbox, 256), device=dev)
+        rig, bbox, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
+                                         cs.SEED, frames=1, distortion=distortion,
+                                         device=dev if distortion else "cpu")
+        pipe = pl.FramePipeline(rig, bench_config(bbox, 256), device=dev)
         mv, proj = pipe.default_camera()
         recs = {"mark_bricks": cs.Recorder(bricks, "mark_bricks"),
                 "piecewise_eval": cs.Recorder(warp_ops, "piecewise_eval")}

@@ -70,8 +70,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.ops import preprocess as pp, raymarch_fast as rmf, warp as warp_ops
     from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.bench_golden import bench_config
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -79,9 +81,9 @@ def main() -> int:
     print(f"card: {card}")
     lib = _build(native)
 
-    rig, bbox, frames = cs._bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
-                                         cs.SEED, frames=1)
-    pipe = pl.FramePipeline(rig, cs._bench_config(bbox, 256), device="cuda")
+    rig, bbox, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128),
+                                     cs.SEED, frames=1)
+    pipe = pl.FramePipeline(rig, bench_config(bbox, 256), device="cuda")
     mv, proj = pipe.default_camera()
     recs = {"registration": cs.Recorder(pp, "warp_screen"),
             "screen": cs.Recorder(rmf, "warp_screen")}

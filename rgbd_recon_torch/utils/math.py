@@ -36,6 +36,14 @@ class Bbox(NamedTuple):
     def size(self) -> np.ndarray:
         return self.max - self.min
 
+    def contains(self, p) -> np.ndarray:
+        """Vectorised inside test over the last axis, faces included
+        (reference: inc_bbox_test.glsl:11-21)."""
+        p = np.asarray(p)
+        return np.logical_and(
+            np.all(p >= self.min, axis=-1), np.all(p <= self.max, axis=-1)
+        )
+
 
 def perspective(fovy_deg: float, aspect: float, near: float, far: float) -> np.ndarray:
     """gluPerspective, returned row-major."""

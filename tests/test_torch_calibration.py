@@ -50,6 +50,31 @@ def test_scene_frames_bit_identical(kind):
     assert (d > 0).mean() > 0.05
 
 
+@pytest.mark.parametrize("shape", [(3,), (64, 3), (12, 16, 3)])
+def test_bbox_contains_matches_jax(shape):
+    """``Bbox.contains`` bit for bit the JAX package's, on points inside,
+    outside and on every face (min and max included), batched as [3],
+    [N, 3] and [H, W, 3]."""
+    bbox, jbbox = Bbox.default(), JBbox.default()
+    rng = np.random.default_rng(3)
+    lo, hi = bbox.min.astype(np.float64), bbox.max.astype(np.float64)
+    p = rng.uniform(lo - 0.5 * (hi - lo), hi + 0.5 * (hi - lo), (4096, 3))
+    face = rng.uniform(lo, hi, (12, 3))
+    for i in range(6):      # on the faces: one coordinate at the min or the max
+        face[2 * i:2 * i + 2, i % 3] = (lo if i < 3 else hi)[i % 3]
+    p[:12] = face
+    p = np.concatenate([p.astype(np.float32), face.astype(np.float32)])
+    p = p[rng.permutation(len(p))][:int(np.prod(shape[:-1]))].reshape(shape)
+    if shape == (3,):
+        p = face[0].astype(np.float32)
+    got, want = bbox.contains(p), jbbox.contains(p)
+    assert got.dtype == want.dtype and got.shape == want.shape == shape[:-1]
+    np.testing.assert_array_equal(got, want)
+    assert bbox.contains(face.astype(np.float32)).all()
+    if len(shape) > 1:
+        assert got.any() and not got.all()
+
+
 def test_port_runs_without_jax():
     """With ``import jax`` (and ``import zmq``) made to fail, every module of
     the port imports (``models/`` included), one CPU FramePipeline.step and
