@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the checks below
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one pinhole frame
+    python3 chip_smoke.py --ladder   # phases 1, 2 and 15 alone
 
 Phases (any failure raises and the script exits non-zero without printing
 a result line):
@@ -170,7 +171,38 @@ a result line):
               render parity; (c) ``use_affine=False`` (kernel 7's table
               mode) against B at the integrator bound; (d) 240^3 (kernel 6)
               against reference C. One line a comparison (its deviation
-              beside its bound), then the phase's seconds.
+              beside its bound), then the phase's seconds;
+15. ladder    the bench's other configurations (bench.py's knobs) against
+              the JAX package's outputs stored in
+              tests/data/torch_bench_golden_ladder.npz
+              (``bench_golden.LADDER``): C, the complex scene at 256^3; S5
+              and S2, rigs of 5 and 2 sensors at 256^3 (built on the host,
+              seconds printed); L1 and L2, the 128^3 and 512^3 rungs on
+              phase 3's rig. For each, the sha256 of its rig and frame 0
+              checked, then ``FramePipeline`` on the card: ``warmup``, one
+              staged frame whose launches must include kernels 1-4 with K
+              registration warps and one screen warp, ``check_capacity``
+              (occupied / capacity printed); with the counters at 0,
+              LADDER_RUN staged frames over LADDER_FRAMES distinct frames
+              (median, min, max, host clock synced; stage means), every
+              kernel of the path launched; then fused: capture seconds,
+              LADDER_RUN frames, memory reserved. The holds on frame 0: C,
+              S5, S2 and L1 stage by stage against reference A at the
+              default view (phase 14's bounds; the brick counts to
+              ``bench_golden.COUNT_VOTES``, the bound between the JAX
+              package's own two stage-1 formulations; the sweep planes on
+              reference A's TSDF with the port's color volume, the render
+              stage apart from the TSDF's flips, which the integrator bound
+              holds: the planes on the port's own TSDF are printed beside
+              the bound, the screens held at render parity); L2's 16^3
+              masks before and after the depth-band cull exact, its counts
+              as the others'; kernel 1 against its plain
+              twin on the path's call at L2 and S5 (the integrator bound,
+              timed as kernel entries); the sweep against the per-ray
+              oracle on the production volume at golden_parity's four
+              views at L2 and C (render parity, and at C also the complex
+              scene's bounds of tests/test_complex_scene.py:139-142). One
+              line a comparison, a summary, then the phase's seconds.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -184,7 +216,8 @@ sheet), from this run's shapes, occupied counts and valid points.
 Phase 3 also prints the launch floor once: an empty kernel at
 mark_bricks' grid by CUDA-graph replay, alone and after a memset of its
 counts. The kernels JSON line holds the launches of phases 3-6 and, for
-kernel 7's window mode, of phase 10's path; phase 9 prints its own. The
+kernel 7's window mode, of phase 10's path, and for kernel 1 at 512^3 and
+at K = 5, of phase 15's staged frames; phase 9 prints its own. The
 last three lines are a JSON object with one entry per kernel (one per
 timed call of kernel 5), the card's name and power limit, and the result
 object.
@@ -1572,6 +1605,218 @@ def _jax_phase(rig, frames, card: str) -> None:
         raise RuntimeError(f"the card's frame disagrees with the JAX package's outputs: {bad}")
 
 
+LADDER_FRAMES = 4          # distinct noisy frames a configuration of phase 15
+LADDER_RUN = 10            # staged and fused frames timed a configuration
+# sweep against the per-ray oracle on the complex scene: the JAX test's own
+# bounds (tests/test_complex_scene.py:139-142; a 2 cm panel's silhouette)
+COMPLEX_BOUNDS = {"hit_agreement": 0.99, "psnr_rgb": 28.0, "depth_err_med": 2e-3,
+                  "depth_err_p99": 3e-2}
+# phase 15's configurations whose kernel 1 call is held to its plain twin
+# (new shapes: 8,192 slots at 512^3, K = 5) and whose sweep is held to the
+# oracle at golden_parity's four views
+LADDER_TWIN = {"L2": "512^3", "S5": "K=5"}
+LADDER_ORACLE = ("L2", "C")
+
+
+def _ladder_phase(rig, frames, card: str, check_integrator, integrator_work,
+                  launches) -> None:
+    """Phase 15 (module docstring): the bench's other configurations through
+    ``FramePipeline`` on the card, each held to the JAX package's outputs in
+    tests/data/torch_bench_golden_ladder.npz. ``rig``/``frames``: phase 3's
+    (the 4-sensor sphere rig of L1 and L2); ``check_integrator`` /
+    ``integrator_work``: main's; kernel 1's twin checks add entries to the
+    kernels line, their launches to ``launches``."""
+    import numpy as np
+    import torch
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.calibration.synthetic import bench_inputs
+    from rgbd_recon_torch.ops import preprocess as pp, raymarch_fast as rmf, tsdf_dense
+    from rgbd_recon_torch.ops.tsdf_fast import occupied_bricks, pack_frames, pack_planes
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.scripts import golden_parity
+    from rgbd_recon_torch.utils import bench_golden as bg
+    from rgbd_recon_torch.utils.metrics import render_parity_passes
+
+    t_phase = time.perf_counter()
+    gold = bg.load(bg.LADDER_PATH)
+    inputs = {(4, "sphere"): (rig, rig.bbox, frames[:LADDER_FRAMES])}
+    rows, summary = [], []
+    need = PATH_KERNELS + ("integrate_dense",)
+    for name, cfg in bg.LADDER.items():
+        label = f"ladder {name} ({cfg.sensors} sensors, {cfg.scene}, {cfg.n}^3)"
+        key = (cfg.sensors, cfg.scene)
+        if key not in inputs:
+            t0 = time.perf_counter()
+            inputs = {(4, "sphere"): inputs[(4, "sphere")],
+                      key: bench_inputs(cfg.sensors, *bg.SIZE, SEED, frames=LADDER_FRAMES,
+                                        scene=cfg.scene)}
+            print(f"{label}: rig + frames (host numpy): {time.perf_counter() - t0:.1f} s")
+        krig, bbox, kframes = inputs[key]
+        g = bg.config(gold, name)
+        bg.check_digests(g, krig, *kframes[0])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = pl.FramePipeline(krig, bg.bench_config(bbox, cfg.n), device="cuda",
+                                log=lambda s: print(f"  {s}"))
+        mv, proj = pipe.default_camera()
+        pipe.warmup(*kframes[0], mv, proj)
+        print(f"{label}: pipeline, session bakes and warm-up: {time.perf_counter() - t0:.1f} s")
+        # one staged frame: kernels 1-4, K registration warps and one screen
+        rec = Recorder(pl, "integrate_dense")
+        split = [CallCounter(pp, "warp_screen", lambda a, kw: "registration"),
+                 CallCounter(rmf, "warp_screen", lambda a, kw: "screen")]
+        for k in native.KERNELS.values():
+            k.launches = 0
+        try:
+            out = pipe.step(*kframes[0], mv, proj)
+            torch.cuda.synchronize()
+        finally:
+            rec.restore()
+            for cc in split:
+                cc.restore()
+        counts = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+        warps = {e: c for cc in split for e, c in cc.counts.items()}
+        n_occ = pipe.check_capacity(out)
+        print(f"{label}: a staged frame launches {counts}, warp_screen by call {warps}; "
+              f"check_capacity: {n_occ} occupied 16^3 bricks of {pipe.max_bricks}")
+        missing = [n for n in need if not counts.get(n)]
+        if missing or warps != {"registration": cfg.sensors, "screen": 1}:
+            raise RuntimeError(f"{label}: kernels {missing} never launched, or warp_screen "
+                               f"calls {warps} are not {cfg.sensors} registrations + 1 screen")
+
+        def timed(fused):
+            """LADDER_RUN step_timed frames over the distinct frames: host
+            clock (synced) per frame, the stage timers' means."""
+            pipe.cfg = pipe.cfg._replace(fused=fused)
+            pipe.timers.reset()
+            times = []
+            for i in range(LADDER_RUN):
+                t = time.perf_counter()
+                pipe.step_timed(*kframes[i % len(kframes)], mv, proj)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            tm = pipe.timers.timers
+            stages = ", ".join(f"{n} {tm[n].mean * 1e3:.3f}" for n in pl.STAGE_TIMERS
+                               if n in tm and tm[n].count)
+            print(f"{label}: {'fused' if fused else 'staged'} frame median "
+                  f"{np.median(times):.3f} ms (min {min(times):.3f}, max {max(times):.3f}) "
+                  f"over {LADDER_RUN} step_timed frames (host clock, synced); stage means "
+                  f"{stages} ms (CUDA events) ({card})")
+            return float(np.median(times))
+
+        # the path: counters to 0, the staged frames, counters read
+        for k in native.KERNELS.values():
+            k.launches = 0
+        staged = timed(False)
+        torch.cuda.synchronize()
+        run_counts = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+        if any(not run_counts.get(n) for n in need):
+            raise RuntimeError(f"{label}: a kernel of {need} never launched: {run_counts}")
+        reserved_staged = torch.cuda.memory_reserved()
+        pipe.cfg = pipe.cfg._replace(fused=True)
+        t0 = time.perf_counter()
+        pipe.warmup(*kframes[0], mv, proj)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        reserved_fused = torch.cuda.memory_reserved()
+        fused = timed(True)
+        pipe.cfg = pipe.cfg._replace(fused=False)
+        print(f"{label}: occupied {n_occ} / {pipe.max_bricks}; staged {staged:.3f} ms, fused "
+              f"{fused:.3f} ms; warm-up + capture {capture_s:.1f} s; memory reserved "
+              f"{reserved_staged / 2**30:.3f} GiB staged, {reserved_fused / 2**30:.3f} GiB "
+              f"with 1 variant (peak {torch.cuda.max_memory_reserved() / 2**30:.3f}) ({card})")
+        summary.append((name, n_occ, pipe.max_bricks, staged, fused, capture_s,
+                        reserved_fused / 2**30))
+
+        # the holds against JAX's outputs on frame 0
+        if cfg.stages:
+            got = bg.port_stages(pipe, *kframes[0], g, views=("default",), on_ref_tsdf=True)
+            v = got["views"]["default"]
+            ref = bg.screen(g, "A/default/")
+            on_ref = bg.compare_sweep(g, "default", got["views_ref"]["default"])
+            new = (bg.compare_pre(g, got) + bg.compare_bricks(g, got, bg.COUNT_VOTES)
+                   + [bg.compare_tsdf(g["A/tsdf"], got["tsdf"]), bg.compare_color(g, got),
+                      on_ref._replace(stage=f"{on_ref.stage} on JAX's TSDF"),
+                      bg.compare_screen("default screen", ref, v["screen"]),
+                      bg.compare_screen("default screen hole-filled", bg.filled(ref),
+                                        bg.filled(v["screen"]))])
+            # the sweep on the port's own TSDF: its flips at the integrator
+            # bound carry into the planes (ROADMAP queue 3); measured, held
+            # through the screens above
+            e2e = bg.compare_sweep(g, "default", v)
+            print(f"jax {label}: {e2e.stage} on the port's TSDF: {e2e.measured} (measured "
+                  f"beside {e2e.bound}: {'within' if e2e.ok else 'outside'})")
+            del got, v
+        else:
+            _, got = bg.port_masks(pipe, *kframes[0])
+            new = bg.compare_bricks(g, got, bg.COUNT_VOTES)
+        for r in new:
+            print(r.line(f"jax {label}"))
+        rows.extend((name, r) for r in new)
+
+        # kernel 1 against its plain twin on this path's call (new shapes)
+        if name in LADDER_TWIN:
+            entry = f"integrate_dense[{LADDER_TWIN[name]}]"
+            (fr, aff, tcfg, m16, maxb, woff, wy, wx, xs, cls), _ = rec.calls[0]
+            idx, count, slots = occupied_bricks(m16, maxb)
+            packed = pack_frames(fr)
+            iargs = (packed, aff.coeffs, idx, count, woff, cls, tcfg.res, wy, wx, xs,
+                     float(tcfg.limit))
+            kargs = (pack_planes(fr), aff.coeffs, idx, count, slots) + iargs[4:]
+            print(f"  {entry}: {int(count)} fused bricks of {slots.numel()}, "
+                  f"{maxb} slots, K = {packed.shape[0]}")
+            check_integrator(entry, "rgbd_recon_torch/csrc/integrate_dense.cu",
+                             "rgbd_recon_tpu/ops/tsdf_dense.py:452",
+                             lambda: tsdf_dense.integrate_dense_cuda(*kargs),
+                             lambda: tsdf_dense.integrate_dense_plain(*iargs), tcfg.limit, 3,
+                             *integrator_work(packed, int(count),
+                                              (slots.numel() + int(count) + 1) * 4, tcfg.res,
+                                              10, 3 * 40 + 8 + 4, FUSE_OPS))
+            launches[entry] = run_counts["integrate_dense"]
+            del fr, aff, m16, woff, cls, idx, slots, packed, iargs, kargs
+        rec.calls.clear()
+
+        # the sweep against the per-ray oracle on this path's production
+        # volume of frame 0 at golden_parity's four views, 1280x720
+        if name in LADDER_ORACLE:
+            pre = pipe._pre(*pipe._sensor_inputs(*kframes[0]))
+            vol, cvol = pipe._integrate(pre)
+            del pre
+            views = golden_parity.renderer_parity(
+                vol, cvol, bbox, float(pipe.tsdf_cfg.limit), proj, 1280, 720,
+                pipe._sweep_res(), pipe._dense_emit, log=lambda s: None)
+            del vol, cvol
+            print(f"{label}: golden parity, oracle marcher vs sweep on the production volume "
+                  f"(bf16, z-major), 1280x720 ({card}):")
+            print(golden_parity.table(views))
+            for r in views:
+                ok = render_parity_passes(r)
+                bound = "render parity"
+                if cfg.scene == "complex":
+                    ok = ok and (r["hit_agreement"] > COMPLEX_BOUNDS["hit_agreement"]
+                                 and r["psnr_rgb"] > COMPLEX_BOUNDS["psnr_rgb"]
+                                 and r["depth_err_med"] < COMPLEX_BOUNDS["depth_err_med"]
+                                 and r["depth_err_p99"] < COMPLEX_BOUNDS["depth_err_p99"])
+                    bound += " and the complex-scene bounds"
+                row = bg.Row(f"{r['view']} sweep vs oracle", f"hit {r['hit_agreement']:.5f}, "
+                             f"{r['psnr_rgb']:.2f} dB, depth median {r['depth_err_med']:.2e} p99 "
+                             f"{r['depth_err_p99']:.2e}", bound, ok)
+                print(row.line(label))
+                rows.append((name, row))
+        del pipe, out
+    torch.cuda.empty_cache()
+    print(f"ladder summary ({card}): name, occupied / capacity, staged ms, fused ms, "
+          f"warm-up + capture s, GiB reserved with 1 variant:")
+    for s in summary:
+        print(f"  {s[0]}: {s[1]} / {s[2]}, {s[3]:.3f}, {s[4]:.3f}, {s[5]:.1f}, {s[6]:.3f}")
+    bad = [f"{name}: {r.stage}" for name, r in rows if not r.ok]
+    print(f"ladder: {len(rows) - len(bad)} of {len(rows)} comparisons within their bounds; "
+          f"phase 15: {time.perf_counter() - t_phase:.1f} s ({card})")
+    if bad:
+        raise RuntimeError(f"the ladder's configurations disagree with the JAX package: {bad}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1736,6 +1981,13 @@ def main() -> int:
         nbytes = (packed.numel() * 4 + index_bytes + n_occ * k * in_bytes_per_brick
                   + vox * out_bytes)
         return nbytes, n_occ * 4096 * (k * pair_ops + COLOR_OPS)
+
+    if "--ladder" in sys.argv[1:]:
+        # phase 15 alone, on phase 3's rig and frames
+        rig, _, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED,
+                                      frames=NUM_FRAMES)
+        _ladder_phase(rig, frames, card, check_integrator, integrator_work, launches)
+        return _finish(t_start, results, launches, card)
 
     # -- 3. pinhole 256^3 ---------------------------------------------------
     t0 = time.perf_counter()
@@ -2137,6 +2389,14 @@ def main() -> int:
         _sharded_phase(rig, bbox, frames, card, work, *scene)
     # -- 14. the card's frame against the JAX package's stored outputs -----
     _jax_phase(rig, frames, card)
+    # -- 15. the bench's other configurations against the JAX package ------
+    _ladder_phase(rig, frames, card, check_integrator, integrator_work, launches)
+    return _finish(t_start, results, launches, card)
+
+
+def _finish(t_start: float, results: dict, launches: dict, card: str) -> int:
+    """The last three lines: the kernels JSON, the card, the result."""
+    import torch
 
     print(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -444,6 +444,32 @@ class ComplexScene(NamedTuple):
     def sdf(self, p: np.ndarray) -> np.ndarray:
         return self._part_d(p).min(axis=-1)
 
+    def part_d(self, p: np.ndarray, j: int) -> np.ndarray:
+        """Column j of ``_part_d``: the distance to part j alone, by the same
+        operations on a one-part slice (the same values)."""
+        c = self.cap_r.shape[0]
+        if j < c:
+            sl = slice(j, j + 1)
+            ab = self.cap_b[sl] - self.cap_a[sl]
+            ap = p[..., None, :] - self.cap_a[sl]
+            denom = np.maximum(np.sum(ab * ab, axis=-1), 1e-12)
+            t = np.clip(np.sum(ap * ab, axis=-1) / denom, 0.0, 1.0)
+            closest = self.cap_a[sl] + t[..., None] * ab
+            return (np.linalg.norm(p[..., None, :] - closest, axis=-1) - self.cap_r[sl])[..., 0]
+        sl = slice(j - c, j - c + 1)
+        q = np.abs(p[..., None, :] - self.box_c[sl]) - self.box_h[sl]
+        qp = np.maximum(q, 0.0)
+        return (np.linalg.norm(qp, axis=-1) + np.minimum(np.max(q, axis=-1), 0.0))[..., 0]
+
+    def bounds(self) -> tuple[np.ndarray, np.ndarray]:
+        """Bounding spheres of the parts, (center f64[C+B, 3], radius
+        f64[C+B]): outside all of them the SDF is positive."""
+        a, b = self.cap_a.astype(np.float64), self.cap_b.astype(np.float64)
+        centers = np.concatenate([(a + b) * 0.5, self.box_c.astype(np.float64)])
+        radii = np.concatenate([np.linalg.norm(b - a, axis=-1) * 0.5 + self.cap_r,
+                                np.linalg.norm(self.box_h.astype(np.float64), axis=-1)])
+        return centers, radii
+
     def color_at(self, p: np.ndarray) -> np.ndarray:
         colors = np.concatenate([self.cap_color, self.box_color])
         idx = np.argmin(self._part_d(p), axis=-1)
@@ -466,6 +492,27 @@ def make_scene(kind: str, bbox: Bbox | None = None):
     if kind == "complex":
         return ComplexScene.default(bbox)
     raise ValueError(f"unknown scene kind {kind!r} (sphere|complex)")
+
+
+def _ray_intervals(cam: PinholeCamera, scene, uu: np.ndarray, vv: np.ndarray,
+                   margin: float = 0.01) -> np.ndarray:
+    """Per pixel and part, the cam-space z interval (lo, hi) f64[2, P, H, W]
+    where the pixel's ray runs within ``margin`` of the part's bounding
+    sphere (``scene.bounds``); empty intervals have lo > hi. Outside every
+    interval the scene's SDF is positive."""
+    centers, radii = scene.bounds()
+    dx = (uu * cam.width - cam.cx) / cam.fx
+    dy = (vv * cam.height - cam.cy) / cam.fy
+    d = np.stack([dx, dy, np.ones_like(dx)], axis=-1) @ np.asarray(cam.rot, np.float64)
+    oc = cam.position.astype(np.float64) - centers                    # [P, 3]
+    a = np.sum(d * d, axis=-1)                                         # [H, W]
+    b = 2.0 * np.einsum("hwc,pc->phw", d, oc)
+    c = np.sum(oc * oc, axis=-1)[:, None, None] - (radii + margin)[:, None, None] ** 2
+    disc = b * b - 4.0 * a * c
+    root = np.sqrt(np.maximum(disc, 0.0))
+    lo = np.where(disc >= 0.0, (-b - root) / (2.0 * a), np.inf)
+    hi = np.where(disc >= 0.0, (-b + root) / (2.0 * a), -np.inf)
+    return np.stack([lo, hi])
 
 
 def _render_depth_general(cam, scene: SphereScene) -> np.ndarray:
@@ -513,11 +560,73 @@ def _render_depth_general(cam, scene: SphereScene) -> np.ndarray:
     return _host(torch.where(hit, z, 0.0).to(torch.float32))
 
 
+def _render_depth_culled(cam: PinholeCamera, scene) -> np.ndarray:
+    """``_render_depth_general``'s march for a pinhole camera on a scene
+    with part ``bounds`` and ``part_d``, in numpy, bit for bit its depth
+    map. The march reads only the sign of the SDF, the least distance to a
+    part: a sample is inside where some part's distance is <= 0. Each part
+    is evaluated only at the samples near its bounding sphere (elsewhere
+    its distance is positive) and, in the bisection, on the pixels that
+    hit, each point from an unproject of the whole pixel grid as there. The
+    bookkeeping runs on the pixels whose rays pass near a part; the others
+    hit nothing."""
+    h, w = cam.height, cam.width
+    u = (np.arange(w, dtype=np.float64) + 0.5) / w
+    v = (np.arange(h, dtype=np.float64) + 0.5) / h
+    vv, uu = np.meshgrid(v, u, indexing="ij")
+    spans = _ray_intervals(cam, scene, uu, vv)
+    n_coarse = 256
+    zs = np.linspace(cam.near, cam.far, n_coarse)
+    cand = ((spans[0] <= cam.far) & (spans[1] >= cam.near)).any(axis=0)
+    spans = spans[:, :, cand]                                # [2, P, n]
+
+    def inside_at(z_grid, near):
+        """Whether unproject(u, v, z) lies in a part, on the candidate
+        pixels; ``near`` bool[P, n]: where each part is evaluated."""
+        inside = np.zeros(near.shape[1], bool)
+        if not near.any():
+            return inside
+        p = cam.unproject(uu, vv, z_grid)[cand]
+        for j in range(near.shape[0]):
+            sel = near[j] & ~inside
+            inside[sel] = scene.part_d(p[sel], j) <= 0
+        return inside
+
+    def near_parts(zk):
+        return (spans[0] <= zk) & (zk <= spans[1])
+
+    prev_in = inside_at(np.full_like(uu, zs[0]), near_parts(zs[0]))
+    z_lo = np.full(prev_in.shape, np.nan)
+    z_hi = z_lo.copy()
+    for zk in zs[1:]:
+        now_in = inside_at(np.full_like(uu, zk), near_parts(zk))
+        crossing = ~prev_in & now_in & np.isnan(z_lo)
+        z_lo = np.where(crossing, zk - (zs[1] - zs[0]), z_lo)
+        z_hi = np.where(crossing, zk, z_hi)
+        prev_in = now_in
+    hit = ~np.isnan(z_lo)
+    z_lo = np.where(hit, z_lo, cam.near)
+    z_hi = np.where(hit, z_hi, cam.far)
+    z_grid = np.full_like(uu, cam.near)
+    for _ in range(40):
+        zm = 0.5 * (z_lo + z_hi)
+        z_grid[cand] = zm
+        m_in = inside_at(z_grid, near_parts(zm) & hit)
+        z_hi = np.where(m_in, zm, z_hi)
+        z_lo = np.where(m_in, z_lo, zm)
+    z = 0.5 * (z_lo + z_hi)
+    out = np.zeros((h, w), np.float32)
+    out[cand] = np.where(hit, z, 0.0).astype(np.float32)
+    return out
+
+
 def render_depth(cam, scene) -> np.ndarray:
     """Analytic Kinect-style depth map f32[H, W] in meters (z-depth of the
     first surface hit; 0 where no hit, mimicking invalid Kinect pixels).
     SphereScene + pinhole uses the closed-form ray-sphere path; any other
     (scene, camera) combination goes through the generic SDF marcher."""
+    if not isinstance(cam, DistortedCamera) and hasattr(scene, "part_d"):
+        return _render_depth_culled(cam, scene)
     if isinstance(cam, DistortedCamera) or not isinstance(scene, SphereScene):
         return _render_depth_general(cam, scene)
     h, w = cam.height, cam.width
@@ -546,11 +655,13 @@ def render_depth(cam, scene) -> np.ndarray:
     return np.where(np.isfinite(best_z), best_z, 0.0).astype(np.float32)
 
 
-def render_color(cam, scene) -> np.ndarray:
+def render_color(cam, scene, depth: np.ndarray | None = None) -> np.ndarray:
     """Analytic color image f32[H, W, 3] in [0, 1]: surface base color shaded
-    by a fixed directional light; a grey gradient background elsewhere."""
+    by a fixed directional light; a grey gradient background elsewhere.
+    ``depth``: the camera's ``render_depth`` when the caller has it."""
     h, w = cam.height, cam.width
-    depth = render_depth(cam, scene)
+    if depth is None:
+        depth = render_depth(cam, scene)
     u = (np.arange(w, dtype=np.float64) + 0.5) / w
     v = (np.arange(h, dtype=np.float64) + 0.5) / h
     uu, vv = np.meshgrid(u, v, indexing="xy")
@@ -579,25 +690,36 @@ def render_frames(cams: Sequence, scene: SphereScene, color_cams=None):
     f32[K, H, W, 3] in [0, 1]. ``color_cams``: render color from the rgb
     cameras when they differ from the depth cameras (distorted rigs)."""
     depth = np.stack([render_depth(c, scene) for c in cams])
-    color = np.stack(
-        [render_color(c, scene) for c in (color_cams or cams)]
-    )
+    if color_cams is None:
+        color = np.stack([render_color(c, scene, d) for c, d in zip(cams, depth)])
+    else:
+        color = np.stack([render_color(c, scene) for c in color_cams])
     return depth, color
 
 
-def bench_inputs(num_sensors: int, width: int, height: int, fwd_res, inv_res, seed: int,
-                 frames: int = 4, distortion: float | None = None, device="cpu"):
-    """The bench inputs of ``chip_smoke.py``: the synthetic rig over
-    ``Bbox.default()`` (distorted cameras computing on ``device``) and
-    ``frames`` distinct noisy copies of its rendered sphere-scene frames
-    (uniform depth noise up to 2 mm, color noise up to 1e-2, drawn from
-    ``seed``). Returns (rig, bbox, [(depth, color), ...])."""
+def bench_scene(num_sensors: int, width: int, height: int, fwd_res, inv_res,
+                scene: str = "sphere", distortion: float | None = None, device="cpu"):
+    """The bench rig over ``Bbox.default()`` (distorted cameras computing on
+    ``device``) and its rendered frame of ``make_scene(scene)`` without
+    noise. Returns (rig, bbox, depth f32[K, H, W], color f32[K, H, W, 3])."""
     bbox = Bbox.default()
     built = synthetic_rig(num_sensors=num_sensors, bbox=bbox, fwd_res=fwd_res,
                           inv_res=inv_res, width=width, height=height,
                           distortion=distortion, device=device)
     rig, cams, ccams = built if distortion is not None else (*built, None)
-    depth, color = render_frames(cams, SphereScene.default(bbox), color_cams=ccams)
+    depth, color = render_frames(cams, make_scene(scene, bbox), color_cams=ccams)
+    return rig, bbox, depth, color
+
+
+def bench_inputs(num_sensors: int, width: int, height: int, fwd_res, inv_res, seed: int,
+                 frames: int = 4, distortion: float | None = None, device="cpu",
+                 scene: str = "sphere"):
+    """The bench inputs of ``chip_smoke.py``: ``bench_scene``'s rig and
+    ``frames`` distinct noisy copies of its frame (uniform depth noise up
+    to 2 mm, color noise up to 1e-2, drawn from ``seed``). Returns (rig,
+    bbox, [(depth, color), ...])."""
+    rig, bbox, depth, color = bench_scene(num_sensors, width, height, fwd_res, inv_res,
+                                          scene, distortion, device)
     rng = np.random.default_rng(seed)
     out = [(depth + rng.uniform(0, 2e-3, depth.shape).astype(np.float32),
             np.clip(color + rng.uniform(0, 1e-2, color.shape).astype(np.float32), 0, 1))

@@ -71,13 +71,8 @@ def bench_inputs(sensors: int, distort: float | None, scene: str, log=print):
         z = np.load(cache)
         return (RigCalibration(*(z[f] for f in RigCalibration._fields)), z["depth"],
                 z["color"])
-    bbox = Bbox.default()
-    built = synthetic.synthetic_rig(num_sensors=sensors, bbox=bbox, fwd_res=(128, 256, 128),
-                                    inv_res=(128, 128, 128), width=512, height=424,
-                                    distortion=distort)
-    rig, cams, ccams = built if distort is not None else (*built, None)
-    depth, color = synthetic.render_frames(cams, synthetic.make_scene(scene, bbox),
-                                           color_cams=ccams)
+    rig, _, depth, color = synthetic.bench_scene(sensors, 512, 424, (128, 256, 128),
+                                                 (128, 128, 128), scene, distort)
     try:
         os.makedirs(CACHE_DIR, exist_ok=True)
         np.savez(cache, depth=depth, color=color, **rig._asdict())
