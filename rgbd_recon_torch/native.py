@@ -162,6 +162,17 @@ def recording():
         _RECORDING.tally = None
 
 
+def graph_nodes(graph: int) -> int:
+    """The node count of a CUDA graph (``CUDAGraph.raw_cuda_graph()``)."""
+    fn = library().rr_graph_nodes
+    fn.argtypes, fn.restype = [P, ctypes.POINTER(I64)], I
+    n = I64(0)
+    rc = fn(graph, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cudaGraphGetNodes failed: {library().rr_error_string(rc).decode()}")
+    return n.value
+
+
 def is_cuda(t: torch.Tensor) -> bool:
     """Dispatch rule of every kernel wrapper: a CUDA tensor launches the
     kernel, a CPU tensor takes the plain PyTorch version, anything else

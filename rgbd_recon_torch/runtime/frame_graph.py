@@ -25,7 +25,14 @@ the frame's launches are recorded once per key and replayed by one call.
   pipeline's graphs, and the ``cudaFree`` of their memory invalidates the
   capture;
 - the kernel launches each capture recorded (``native.recording``), added
-  to the kernel counters at every replay, so the counters count what ran.
+  to the kernel counters at every replay, so the counters count what ran;
+- with the span recorder on (``utils.timers.SPANS``): the spans and
+  counts made inside each capture (``SPANS.probe``; the eager warm-up
+  before it, no frame, records nothing), the graph's node
+  count (``graph.nodes``, from a graph kept for it and then instantiated),
+  and the device events that bound the frame and time ``load``'s copies
+  and ``replay``'s clones (``SPANS.mark_start``, ``copies``,
+  ``mark_end``). With it off a capture is what it was without it.
 
 A replay returns copies of the graph's outputs: the next replay never
 overwrites a frame the caller still holds. The graphs share one memory
@@ -51,12 +58,14 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.timers import SPANS
 
 
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     out: tuple                    # the graph's own output tensors (a NamedTuple)
     launches: dict[str, int]      # kernel launches of one replay
+    probe: object = None          # the span recorder's events and counts (captured with it on)
 
 
 _GC_LOCK = threading.Lock()
@@ -138,12 +147,15 @@ class FrameGraphs:
             self._spec = spec
         if self._staged is not None:
             self._staged.synchronize()      # the last frame's copies have left the staging
+        SPANS.mark_start()
         for buf, stage, src in zip(self._inputs, self._staging, srcs):
             if src.device.type == "cuda":
-                buf.copy_(src)
+                with SPANS.copies("frame.io.load"):
+                    buf.copy_(src)
             else:
                 stage.copy_(src)
-                buf.copy_(stage, non_blocking=True)
+                with SPANS.copies("frame.io.load"):
+                    buf.copy_(stage, non_blocking=True)
         self._staged = torch.cuda.Event()
         self._staged.record()
 
@@ -166,12 +178,14 @@ class FrameGraphs:
             stream = self._streams.stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), SPANS.muted():
             self._fn(inputs, key)           # the eager warm-up; its output is not kept
         stream.synchronize()
         t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with _no_gc(), torch.cuda.stream(stream), native.recording() as tally:
+        traced = SPANS.on
+        graph = torch.cuda.CUDAGraph(keep_graph=traced)
+        with _no_gc(), torch.cuda.stream(stream), native.recording() as tally, \
+                (SPANS.probe(self.device) if traced else contextlib.nullcontext()) as probe:
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 out = self._fn(inputs, key)
@@ -180,11 +194,14 @@ class FrameGraphs:
                     graph.capture_end()
                 raise
             graph.capture_end()
+        if traced:
+            SPANS.count("graph.nodes", native.graph_nodes(graph.raw_cuda_graph()))
+            graph.instantiate()
         t2 = time.perf_counter()
         with self._lock:
             if self._gen != gen:
                 return None
-            self._graphs.setdefault(key, _Graph(graph, out, dict(tally)))
+            self._graphs.setdefault(key, _Graph(graph, out, dict(tally), probe))
         return t1 - t0, t2 - t1
 
     def replay(self, key: Hashable) -> tuple:
@@ -192,6 +209,11 @@ class FrameGraphs:
         caller with ``capture`` first) and return copies of its outputs."""
         with self._lock:
             g = self._graphs[key]
-        g.graph.replay()
-        native.add_launches(g.launches)
-        return type(g.out)(*(t.clone() for t in g.out))
+        with SPANS.span("frame.launch"):
+            g.graph.replay()
+        with SPANS.span("frame.outputs"):
+            native.add_launches(g.launches)
+            with SPANS.copies("frame.io.outputs"):
+                out = type(g.out)(*(t.clone() for t in g.out))
+            SPANS.mark_end(g.probe)
+        return out

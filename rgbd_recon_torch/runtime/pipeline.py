@@ -65,7 +65,12 @@ first call on the card builds the CUDA kernels), or in fused mode captures
 the frame's graph; ``warm_variants_async`` captures the other five sweep
 variants on a daemon thread in fused mode. Stage timers live on the
 process-wide ``TimerDatabase.instance()``, as in the JAX package; a new
-pipeline starts its four stage timers empty.
+pipeline starts its four stage timers empty. With the span recorder on
+(``utils.timers.SPANS``, off by default) each step is a ``frame`` span:
+fused on the card, host spans of the key, the load, the launch and the
+outputs, and device spans of the stages (3recon as its sweep and its
+shade) timed inside the graph; a fused CPU frame has the same stage
+spans on the host clock, a staged frame only ``frame``.
 """
 from __future__ import annotations
 
@@ -93,7 +98,7 @@ from ..ops.tsdf_persist import WX2, XSTRIDE2, integrate_affine
 from ..ops.tsdf_sparse import integrate_sparse, win_offsets_pallas
 from ..ops.warp import bake_piecewise_warp, bake_pixel_warp
 from ..utils.math import look_at, perspective
-from ..utils.timers import TimerDatabase
+from ..utils.timers import SPANS, TimerDatabase
 from .frame_graph import FrameGraphs
 
 
@@ -184,8 +189,8 @@ class FramePipeline:
             self.timers.timers.pop(t, None)
             self.timers.add_timer(t)
         me = weakref.ref(self)      # no cycle: a dropped pipeline frees its graphs at once
-        self._graphs = FrameGraphs(lambda inputs, key: me()._frame(*inputs, *key),
-                                   self.device)
+        self._graphs = FrameGraphs(
+            lambda inputs, key: me()._frame(*inputs, *key, scope=SPANS.span), self.device)
         self._graph_cfg = None
         self._configure(cfg)
 
@@ -447,9 +452,17 @@ class FramePipeline:
         if cfg.skip_space:      # fused: the flags stay on the device
             occ = (rmf.slab_occupancy_device if cfg.fused else rmf.slab_occupancy)(
                 pre.mask16, axis, self.tsdf_cfg.res[axis])
-        return rmf.render_fast(
-            vol, cvol, cam, self.bbox, limit, axis, flip, params,
-            rmf.SweepConfig(res=self._sweep_res()), occ, zmajor=self._dense_emit)
+            SPANS.count("render.slices_occupied", occ)
+            SPANS.count("render.slices_swept", len(occ))
+        # render_fast's two halves, each a span of the fused frame
+        span = SPANS.span if cfg.fused else (lambda name: contextlib.nullcontext())
+        scfg = rmf.SweepConfig(res=self._sweep_res())
+        with span("3recon.sweep"):
+            res = rmf.sweep(vol, cvol, cam, self.bbox, limit, axis, flip, scfg, occ,
+                            self._dense_emit)
+        with span("3recon.shade"):
+            return rmf.shade_sweep(res, cam, self.bbox, axis, flip, vol.shape[2 - axis],
+                                   params, scfg)
 
     def _fill(self, color, depth):
         """holefill: inpaint pyramid + colorfill resolve."""
@@ -529,8 +542,10 @@ class FramePipeline:
         and its graph captured at first use, with a log line and the
         seconds of the eager warm-up (it builds the kernels with nvcc on
         first use) and of the capture; returns the graph key."""
-        key = self._fused_key(depth_m, modelview)
-        self._graphs.load(depth_m, color, modelview, proj)
+        with SPANS.span("frame.key"):
+            key = self._fused_key(depth_m, modelview)
+        with SPANS.span("frame.load"):
+            self._graphs.load(depth_m, color, modelview, proj)
         if key not in self._graphs:
             what = f"axis={key[0]} flip={key[1]}" if self.use_fast else "per-ray marcher"
             self._log(f"capturing fused frame step ({what}) ...")
@@ -636,17 +651,18 @@ class FramePipeline:
             return (self.timers.scope(name, self.device) if timed
                     else contextlib.nullcontext())
 
-        if self.cfg.fused and self.device.type == "cuda":
-            key = self._fused_ready(depth_m, color, modelview, proj)
-            with scope("3recon"):
-                out = self._graphs.replay(key)
-        else:
-            depth, col, mv, pr, axis, flip = self._inputs(depth_m, color, modelview, proj)
-            if self.cfg.fused:      # the CPU: the fused frame eagerly, timed as one
+        with SPANS.frame():
+            if self.cfg.fused and self.device.type == "cuda":
+                key = self._fused_ready(depth_m, color, modelview, proj)
                 with scope("3recon"):
-                    out = self._frame(depth, col, mv, pr, axis, flip)
+                    out = self._graphs.replay(key)
             else:
-                out = self._frame(depth, col, mv, pr, axis, flip, scope)
+                depth, col, mv, pr, axis, flip = self._inputs(depth_m, color, modelview, proj)
+                if self.cfg.fused:      # the CPU: the fused frame eagerly, timed as one
+                    with scope("3recon"):
+                        out = self._frame(depth, col, mv, pr, axis, flip, SPANS.span)
+                else:
+                    out = self._frame(depth, col, mv, pr, axis, flip, scope)
         if timed:
             self.timers.flush()
         return out
