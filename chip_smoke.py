@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the checks below
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one pinhole frame
     python3 chip_smoke.py --ladder   # phases 1, 2 and 15 alone
+    python3 chip_smoke.py --sweep    # phases 1, 2 and 16 alone
 
 Phases (any failure raises and the script exits non-zero without printing
 a result line):
@@ -202,7 +203,17 @@ a result line):
               oracle on the production volume at golden_parity's four
               views at L2 and C (render parity, and at C also the complex
               scene's bounds of tests/test_complex_scene.py:139-142). One
-              line a comparison, a summary, then the phase's seconds.
+              line a comparison, a summary, then the phase's seconds;
+16. sweep     (run right after phase 3) the sweep kernel
+              (``csrc/sweep_march.cu``) on phase 3's rig and frame 0 at
+              256^3 and 512^3: the staged frame's sweep arguments recorded;
+              at each (axis, flip), the default camera for its own and
+              ``_orbit_camera`` for the others, the kernel against
+              ``sweep_plain`` bit for bit on the frame's volumes and device
+              flags and its graph-replayed ms (the time by axis); the
+              default view as a kernel entry (L2-cold and plain ms, the
+              bound of ``recon_bench/roofline.sweep_work`` on the frame's
+              occupied blocks); one launch a fused frame.
 
 Every kernel entry carries its time and, where one PyTorch call computes
 the same function, that call's time (both from a CUDA graph of back-to-back
@@ -1618,6 +1629,90 @@ LADDER_TWIN = {"L2": "512^3", "S5": "K=5"}
 LADDER_ORACLE = ("L2", "C")
 
 
+SWEEP_REPS = 10           # graph-replayed sweeps a timing
+
+
+def _sweep_phase(rig, bbox, frames, card: str, report, launches) -> None:
+    """Phase 16: the sweep kernel (``csrc/sweep_march.cu``) on the pinhole
+    rig's frame 0 at 256^3 and 512^3: the staged frame's sweep arguments
+    recorded, then at each (axis, flip) (the default camera for its own
+    variant, ``_orbit_camera`` for the others) the kernel against
+    ``sweep_plain`` bit for bit on the frame's volumes and device flags,
+    and timed by graph replay; the default view's entry in the kernels
+    table with its L2-cold and plain times and the bound of
+    ``recon_bench/roofline.sweep_work`` on the frame's occupied blocks; the
+    launches of a fused frame (one a replay)."""
+    import torch
+    from rgbd_recon_torch import native
+    from rgbd_recon_torch.ops import raymarch as rm, raymarch_fast as rmf
+    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.utils.bench_golden import bench_config
+
+    sys.path.insert(0, HERE)
+    from recon_bench import roofline
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    for n in (256, 512):
+        pipe = pl.FramePipeline(rig, bench_config(bbox, n), device=dev)
+        mv, proj = pipe.default_camera()
+        recs = {name: Recorder(rmf, name) for name in ("sweep", "slab_occupancy")}
+        try:
+            pipe.step(*frames[0], mv, proj)
+            torch.cuda.synchronize()
+        finally:
+            for r in recs.values():
+                r.restore()
+        (vol, cvol, cam, box, limit, axis0, flip0, scfg, _, zmajor), _ = recs["sweep"].calls[0]
+        (mask16, _, _), _ = recs["slab_occupancy"].calls[0]
+        n_occ = int(mask16.sum())
+        with open(os.path.join(HERE, "recon_bench", "configs", f"k4-{n}.json")) as f:
+            nbytes, ops = roofline.sweep_work(json.load(f), n_occ)
+        proj_t = torch.as_tensor(proj, dtype=torch.float32, device=dev)
+        by_axis = {}
+        for axis, flip in [(axis0, flip0)] + [v for v in pl.VARIANTS if v != (axis0, flip0)]:
+            view = mv if (axis, flip) == (axis0, flip0) else _orbit_camera(pipe, axis, flip)
+            vcam = rm.RenderCamera(torch.as_tensor(view, dtype=torch.float32, device=dev),
+                                   proj_t, cam.width, cam.height)
+            occ = rmf.slab_occupancy_device(mask16, axis, n)
+            args = (vol, cvol, vcam, box, limit, axis, flip, scfg, occ, zmajor)
+            got, want = rmf.sweep_cuda(*args), rmf.sweep_plain(*args)
+            fields = ("hit", "hit_s", "hit_color", "hit_grad", "num_samples")
+            differ = [f for f in fields if not torch.equal(getattr(got, f), getattr(want, f))]
+            ms = _time_ms(lambda a=args: rmf.sweep_cuda(*a), SWEEP_REPS, graph=True)
+            by_axis[(axis, flip)] = ms
+            print(f"  sweep_march {n}^3 ({axis}, {flip}): {ms:.4f} ms (graph replay), hit "
+                  f"{float(got.hit.mean()):.4f}, occupied slices {int(occ.sum())}/{n}, "
+                  f"bit for bit sweep_plain: {not differ} {differ or ''} ({card})")
+            if differ:
+                raise RuntimeError(f"sweep_march {n}^3 {(axis, flip)} differs from "
+                                   f"sweep_plain in {differ}")
+            if (axis, flip) == (axis0, flip0):
+                cat = lambda r: torch.cat([getattr(r, f).reshape(-1) for f in fields])
+                report(f"sweep_march[{n}^3]", "rgbd_recon_torch/csrc/sweep_march.cu",
+                       "none: the sweep's slice loop (rgbd_recon_torch/ops/raymarch_fast.py "
+                       "sweep_plain)", _errs(cat(got), cat(want)), "bit for bit", True,
+                       lambda a=args: rmf.sweep_cuda(*a), lambda a=args: rmf.sweep_plain(*a),
+                       5, nbytes, ops)
+        print(f"  sweep_march {n}^3 by axis (ms): "
+              + ", ".join(f"{v}: {ms:.4f}" for v, ms in by_axis.items()))
+        pipe.cfg = pipe.cfg._replace(fused=True)
+        pipe.warmup(*frames[0], mv, proj)
+        kern = native.KERNELS["sweep_march"]
+        before = kern.launches
+        for i in range(3):
+            pipe.step(*frames[i % len(frames)], mv, proj)
+        torch.cuda.synchronize()
+        per_frame = (kern.launches - before) / 3
+        print(f"  sweep_march {n}^3: {per_frame:g} launches a fused frame")
+        if per_frame != 1:
+            raise RuntimeError(f"sweep_march launched {per_frame} times a fused frame")
+        launches[f"sweep_march[{n}^3]"] = 1
+        del pipe, recs, vol, cvol, got, want
+        torch.cuda.empty_cache()
+    print(f"sweep phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _ladder_phase(rig, frames, card: str, check_integrator, integrator_work,
                   launches) -> None:
     """Phase 15 (module docstring): the bench's other configurations through
@@ -1982,6 +2077,13 @@ def main() -> int:
                   + vox * out_bytes)
         return nbytes, n_occ * 4096 * (k * pair_ops + COLOR_OPS)
 
+    if "--sweep" in sys.argv[1:]:
+        # phase 16 alone, on phase 3's rig and frames
+        rig, bbox, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED,
+                                         frames=NUM_FRAMES)
+        _sweep_phase(rig, bbox, frames, card, report, launches)
+        return _finish(t_start, results, launches, card)
+
     if "--ladder" in sys.argv[1:]:
         # phase 15 alone, on phase 3's rig and frames
         rig, _, frames = bench_inputs(4, 512, 424, (128, 256, 128), (128, 128, 128), SEED,
@@ -2121,6 +2223,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="rgbd_trace_") as tdir:
         _fused_pinhole(pipe, frames, mv, proj, card, tdir, reserved_0)
     del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls, outs
+
+    # -- 16. the sweep kernel at 256^3 and 512^3 (on this phase's rig) -------
+    _sweep_phase(rig, bbox, frames, card, report, launches)
 
     # -- 4. distorted rig, 256^3 (the piecewise warp, kernel 5) --------------
     t0 = time.perf_counter()

@@ -7,16 +7,22 @@ carry the per-ray hit state front to back (zero crossing + the shader's
 secant refinement, fs:92-110), then warp the intermediate hit buffers to
 the screen with the windowed warp (kernel 2) and shade.
 
-This is the per-slice form of the JAX sweep with the slab skip: slices of
-16-voxel brick layers holding no occupied brick are skipped. The staged
-frame decides that on the host from the frame's brick mask
-(``slab_occupancy``, one sync a frame); the fused frame, one CUDA graph,
-keeps the flags on the device (``slab_occupancy_device``) as JAX keeps
-them under ``lax.cond``: every slice is resampled and the flag selects
-the skip's values, bit for bit the host skip's. The resample products keep the JAX
-version's bf16 rounding of weights, slices and the row-stage intermediate
-with float32 accumulation (TF32 off), so both sides resample the same
-numbers. Two volume layouts, as the JAX sweep reads them: the dense
+The JAX sweep with the slab skip: slices of 16-voxel brick layers holding
+no occupied brick are skipped, by flags in physical slice order from the
+frame's brick mask, on the host (``slab_occupancy``, one sync a frame:
+the staged frame) or on the device (``slab_occupancy_device``: the fused
+frame, one CUDA graph). On the card ``sweep`` is one launch of the
+hand-written kernel ``csrc/sweep_march.cu`` (``sweep_cuda``): the carry
+in registers, each ray resampled at its non-zero hat taps, empty slices
+skipped by the device flags, the camera's values read from device tensors
+(``sweep_params``). ``sweep_plain`` is the same function in PyTorch, slice
+by slice, and the CPU path: its resample is two hat-weight matrix
+products with the JAX version's bf16 rounding of weights, slices and the
+row-stage intermediate and float32 accumulation (TF32 off); given device
+flags it resamples every slice and the flag selects the skip's values (as
+JAX's ``lax.cond``). The kernel equals it bit for bit (up to the sign of
+a zero): each stage of the products sums at most two non-zero exact
+products. Two volume layouts, as the JAX sweep reads them: the dense
 emit's z-major color [Vz, 4, Vy, Vx] (``zmajor=True``) and channels-last
 color [Vz, Vy, Vx, 4] (the block-major and table integrators), each beside
 a TSDF [Vz, Vy, Vx] in bf16 or f32. The TPU's 16-slice slab branch is not
@@ -35,7 +41,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.math import Bbox, full_f32, pmat
+from .. import native
+from ..utils.math import Bbox, device_const, full_f32, pmat
 from .raymarch import RenderCamera, RenderOutput, RenderParams, phong_shade, vol_to_world_tensor
 from .warp import warp_screen
 
@@ -135,32 +142,29 @@ def sweep_planes(tsdf: torch.Tensor, cvol: torch.Tensor, axis: int,
     return tsdf.permute(array_perm), col
 
 
-def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
-          limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
-          slab_occupied: np.ndarray | torch.Tensor | None = None,
-          zmajor: bool = True, window: SweepWindow | None = None) -> SweepResult:
-    """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
-    color volume ``cvol``: Z-MAJOR [Vz, 4, Vy, Vx] (the dense-emit layout)
-    or, with ``zmajor=False``, channels-last [Vz, Vy, Vx, 4];
-    ``slab_occupied`` bool[n_slices] in physical slice order: a host array
-    skips the empty slices, a device tensor (``slab_occupancy_device``)
-    gates them with no host sync, to the same bits.
+class SweepGrid(NamedTuple):
+    """The camera's part of a sweep, on the camera's device: the eye in
+    permuted coordinates, the base plane's divisor, the intermediate
+    grid's extents (g_lo, g_hi: rows, cols) and sample positions, and the
+    doubled grid steps of the in-plane gradient."""
 
-    ``window``: sweep only a logical k-window over a local slab
-    (``SweepWindow``): ``tsdf``/``cvol`` then hold the slab's slices
-    (physically contiguous), ``slab_occupied`` the slab's flags, and the
-    result folds with ``merge_sweep``. The grid extents and the step use
-    the global slice count."""
-    dev = tsdf.device
+    eye_p: torch.Tensor    # f32[3]
+    denom: torch.Tensor    # f32[]
+    g_lo: torch.Tensor     # f32[2]
+    g_hi: torch.Tensor     # f32[2]
+    r_grid: torch.Tensor   # f32[Ti]
+    c_grid: torch.Tensor   # f32[Si]
+    dr2: torch.Tensor      # f32[]
+    dc2: torch.Tensor      # f32[]
+
+
+def sweep_grid(cam: RenderCamera, bbox: Bbox, axis: int, flip: bool, ns: int,
+               res: tuple[int, int]) -> SweepGrid:
+    """The sweep's camera values for ``ns`` global slices on a ``res``
+    grid, by tensor ops on the camera's device (no host copy: a captured
+    frame replays them with each frame's modelview)."""
+    dev = cam.modelview.device
     coord_perm, _ = _permutation(axis)
-    vol, col = sweep_planes(tsdf, cvol, axis, zmajor)
-    ns_local, nr, nc = vol.shape
-    ns = window.ns_total if window is not None else ns_local
-    k0 = window.k0 if window is not None else 0
-    # physical index of the slab's first slice in the global volume
-    # (logical k -> global physical ns-1-k when flipped)
-    p0 = (ns - k0 - ns_local) if flip else k0
-
     v2w = vol_to_world_tensor(bbox, dev)
     with full_f32():     # inv_ex: inv's numbers without its host-side singularity check
         inv = torch.linalg.inv_ex(pmat(cam.modelview, v2w)).inverse
@@ -180,37 +184,88 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
     allpts = torch.stack(lo + hi)
     g_lo = torch.clamp(allpts.amin(dim=0), -1.0, 2.0)
     g_hi = torch.clamp(allpts.amax(dim=0), -1.0, 2.0)
-    ti, si = cfg.res
+    ti, si = res
     ar_t = (torch.arange(ti, dtype=torch.float32, device=dev) + 0.5) / ti
     ar_s = (torch.arange(si, dtype=torch.float32, device=dev) + 0.5) / si
     r_grid = g_lo[0] + ar_t * (g_hi[0] - g_lo[0])
     c_grid = g_lo[1] + ar_s * (g_hi[1] - g_lo[1])
     dr2 = 2.0 * (r_grid[1] - r_grid[0])
     dc2 = 2.0 * (c_grid[1] - c_grid[0])
+    return SweepGrid(eye_p, denom, g_lo, g_hi, r_grid, c_grid, dr2, dc2)
+
+
+def _sigma_of(grid: SweepGrid, k: int, ns: int):
+    """Logical slice ``k``'s sweep coordinate s_k (a Python double) and its
+    scale sigma = (s_k - e_s) / denom about the eye."""
+    s_k = (k + 0.5) * (1.0 / ns)
+    return s_k, (s_k - grid.eye_p[0]) / grid.denom
+
+
+def _resample(grid: SweepGrid, sl_d, sl_c, sigma, res):
+    """[5, Ti, Si] (density, rgba) of a slice pair ([R, C], [4, R, C]) at
+    p = e + sigma (g - e)."""
+    ti, si = res
+    nr, nc = sl_d.shape
+    pr = grid.eye_p[1] + sigma * (grid.r_grid - grid.eye_p[1])
+    pc = grid.eye_p[2] + sigma * (grid.c_grid - grid.eye_p[2])
+    wr = _bf16(_hat_rows(pr * nr - 0.5, nr))         # [Ti, R]
+    wc = _bf16(_hat_rows(pc * nc - 0.5, nc))         # [Si, C]
+    bf16 = torch.bfloat16
+    both = torch.cat([sl_d[None].to(bf16), sl_c.to(bf16)], 0).to(torch.float32)
+    with full_f32():
+        t = wr @ both.permute(1, 0, 2).reshape(nr, 5 * nc)          # [Ti, 5C]
+        out = _bf16(t).reshape(ti * 5, nc) @ wc.T                   # [5Ti, Si]
+    return out.reshape(ti, 5, si).permute(1, 0, 2)
+
+
+def _gradient(grid: SweepGrid, d, prev_d, sigma, ds: float):
+    gr = (torch.roll(d, -1, 0) - torch.roll(d, 1, 0)) / (grid.dr2 * sigma + 1e-12)
+    gc = (torch.roll(d, -1, 1) - torch.roll(d, 1, 1)) / (grid.dc2 * sigma + 1e-12)
+    return torch.stack([(d - prev_d) / ds, gr, gc], dim=0)
+
+
+def _window_carry(grid: SweepGrid, window: SweepWindow, res):
+    """The windowed start: the carry (prev_d, prev_c, prev_g) as of logical
+    k0, rebuilt from the halo slices at k0-1 and k0-2 by the resample's
+    arithmetic."""
+    _, sg1 = _sigma_of(grid, window.k0 - 1, window.ns_total)
+    _, sg2 = _sigma_of(grid, window.k0 - 2, window.ns_total)
+    smp1 = _resample(grid, window.halo_d1, window.halo_c1, sg1, res)
+    d2 = _resample(grid, window.halo_d2, torch.zeros_like(window.halo_c1), sg2, res)[0]
+    prev_d = smp1[0]
+    prev_g = _gradient(grid, prev_d, d2, sg1, 1.0 / window.ns_total)
+    return prev_d, smp1[1:5].to(torch.bfloat16), prev_g.to(torch.bfloat16)
+
+
+def _extent(tsdf, cvol, axis: int, flip: bool, zmajor: bool, window: SweepWindow | None):
+    """(vol, col, ns, k0, p0) of ``sweep``'s arguments: the sweep-frame
+    views, the global slice count, the logical start and the physical index
+    of the slab's first slice in the global volume (logical k -> global
+    physical ns-1-k when flipped)."""
+    vol, col = sweep_planes(tsdf, cvol, axis, zmajor)
+    ns_local = vol.shape[0]
+    ns = window.ns_total if window is not None else ns_local
+    k0 = window.k0 if window is not None else 0
+    p0 = (ns - k0 - ns_local) if flip else k0
+    return vol, col, ns, k0, p0
+
+
+def sweep_plain(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
+                limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
+                slab_occupied: np.ndarray | torch.Tensor | None = None,
+                zmajor: bool = True, window: SweepWindow | None = None) -> SweepResult:
+    """``sweep`` in PyTorch, slice by slice: each slice resampled by two
+    hat-weight matrix products, the carry as [Ti, Si] tensors. A host
+    ``slab_occupied`` skips the empty slices; a device tensor gates them
+    (every slice resampled, the flag selecting the skip's values)."""
+    dev = tsdf.device
+    vol, col, ns, k0, p0 = _extent(tsdf, cvol, axis, flip, zmajor, window)
+    ns_local = vol.shape[0]
+    res = cfg.res
+    grid = sweep_grid(cam, bbox, axis, flip, ns, res)
+    ti, si = res
     ds = 1.0 / ns
     bf16 = torch.bfloat16
-
-    def resample(sl_d, sl_c, sigma):
-        """[5, Ti, Si] (density, rgba) of a slice pair ([R, C], [4, R, C])
-        at p = e + sigma (g - e)."""
-        pr = eye_p[1] + sigma * (r_grid - eye_p[1])
-        pc = eye_p[2] + sigma * (c_grid - eye_p[2])
-        wr = _bf16(_hat_rows(pr * nr - 0.5, nr))         # [Ti, R]
-        wc = _bf16(_hat_rows(pc * nc - 0.5, nc))         # [Si, C]
-        both = torch.cat([sl_d[None].to(bf16), sl_c.to(bf16)], 0).to(torch.float32)
-        with full_f32():
-            t = wr @ both.permute(1, 0, 2).reshape(nr, 5 * nc)          # [Ti, 5C]
-            out = _bf16(t).reshape(ti * 5, nc) @ wc.T                   # [5Ti, Si]
-        return out.reshape(ti, 5, si).permute(1, 0, 2)
-
-    def sigma_of(k):
-        s_k = (k + 0.5) * ds
-        return s_k, (s_k - es) / denom
-
-    def gradient(d, prev_d, sigma):
-        gr = (torch.roll(d, -1, 0) - torch.roll(d, 1, 0)) / (dr2 * sigma + 1e-12)
-        gc = (torch.roll(d, -1, 1) - torch.roll(d, 1, 1)) / (dc2 * sigma + 1e-12)
-        return torch.stack([(d - prev_d) / ds, gr, gc], dim=0)
 
     hit_s = torch.full((ti, si), -1.0, device=dev)
     hit_c = torch.zeros((4, ti, si), dtype=bf16, device=dev)
@@ -221,14 +276,7 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
                   torch.zeros((3, ti, si), dtype=bf16, device=dev))
     prev_d, prev_c, prev_g = prev_clear
     if window is not None and window.halo_valid:
-        # the windowed start: the carry as of logical k0, rebuilt from the
-        # halo slices at k0-1 and k0-2 by the same resample arithmetic
-        _, sg1 = sigma_of(k0 - 1)
-        _, sg2 = sigma_of(k0 - 2)
-        smp1 = resample(window.halo_d1, window.halo_c1, sg1)
-        d2 = resample(window.halo_d2, torch.zeros_like(window.halo_c1), sg2)[0]
-        prev_d, prev_c = smp1[0], smp1[1:5].to(bf16)
-        prev_g = gradient(prev_d, d2, sg1).to(bf16)
+        prev_d, prev_c, prev_g = _window_carry(grid, window, res)
     gated = isinstance(slab_occupied, torch.Tensor)
     for k in range(k0, k0 + ns_local):
         k_phys = ((ns - 1 - k) if flip else k) - p0
@@ -238,11 +286,11 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
             nsamp = nsamp + active.to(torch.float32)
             prev_d, prev_c, prev_g = prev_clear
             continue
-        s_k, sigma = sigma_of(k)
-        smp = resample(vol[k_phys], col[k_phys], sigma)
+        s_k, sigma = _sigma_of(grid, k, ns)
+        smp = _resample(grid, vol[k_phys], col[k_phys], sigma, res)
         d = smp[0]
         c = smp[1:5]
-        g = gradient(d, prev_d, sigma)
+        g = _gradient(grid, d, prev_d, sigma, ds)
         crossed = active & (d > 0.0) & (k > 0)
         if gated:           # an empty slice crosses nothing
             on = slab_occupied[k_phys]
@@ -267,8 +315,116 @@ def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
         hit, torch.clamp(hit_s, min=0.0),
         hit_c.to(torch.float32).permute(1, 2, 0),
         hit_g.to(torch.float32).permute(1, 2, 0),
-        (g_lo[0], g_hi[0], g_lo[1], g_hi[1]), eye_p, nsamp,
+        (grid.g_lo[0], grid.g_hi[0], grid.g_lo[1], grid.g_hi[1]), grid.eye_p, nsamp,
     )
+
+
+class SweepParams(NamedTuple):
+    """The kernel's per-slice inputs, f32[n] on the device for the logical
+    slices k0..k0+n-1, each the twin's own value: sigma; s_back = s_k - ds
+    (a double in the twin, rounded once); the gradient's divisors
+    dr2 * sigma + 1e-12 and dc2 * sigma + 1e-12. ``ds`` is the twin's
+    1 / ns as the float32 its products see."""
+
+    grid: SweepGrid
+    sigma: torch.Tensor
+    s_back: torch.Tensor
+    grad_r: torch.Tensor
+    grad_c: torch.Tensor
+    ds: float
+
+
+def sweep_params(cam: RenderCamera, bbox: Bbox, axis: int, flip: bool, ns: int, k0: int,
+                 n: int, res: tuple[int, int]) -> SweepParams:
+    """What ``sweep_cuda`` packs for the kernel: the grid and the per-slice
+    values, by tensor ops on the device from the camera (no host float of
+    the camera reaches the kernel); the slices' s_k and s_k - ds are
+    constants of (ns, k0, n), made once per device."""
+    grid = sweep_grid(cam, bbox, axis, flip, ns, res)
+    dev = grid.eye_p.device
+    ds = 1.0 / ns
+    s_k = device_const(tuple((k + 0.5) * ds for k in range(k0, k0 + n)), dev)
+    s_back = device_const(tuple((k + 0.5) * ds - ds for k in range(k0, k0 + n)), dev)
+    sigma = (s_k - grid.eye_p[0]) / grid.denom
+    return SweepParams(grid, sigma, s_back, grid.dr2 * sigma + 1e-12,
+                       grid.dc2 * sigma + 1e-12, float(np.float32(ds)))
+
+
+_SWEEP_MARCH = native.Kernel(
+    "sweep_march",
+    [native.P] * 18 + [native.I64] * 7 + [native.I] * 11 + [native.F] * 2,
+)
+
+
+def sweep_cuda(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
+               limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
+               slab_occupied: np.ndarray | torch.Tensor | None = None,
+               zmajor: bool = True, window: SweepWindow | None = None) -> SweepResult:
+    """``sweep`` on the card: one launch of ``csrc/sweep_march.cu`` over
+    the whole sweep, the carry in registers, empty slices skipped by the
+    flags read on the device; the arguments of ``sweep_plain`` and its
+    result bit for bit (up to the sign of a zero)."""
+    dev = tsdf.device
+    vol, col, ns, k0, p0 = _extent(tsdf, cvol, axis, flip, zmajor, window)
+    ns_local, nr, nc = vol.shape
+    ti, si = cfg.res
+    for name, t in (("tsdf", vol), ("cvol", col)):
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"sweep kernel: {name} dtype {t.dtype}, takes bfloat16 or float32")
+        if t.device != dev:
+            raise ValueError(f"sweep kernel: {name} on {t.device}, expected {dev}")
+    if tuple(col.shape) != (ns_local, 4, nr, nc):
+        raise ValueError(f"sweep kernel: color {tuple(col.shape)} beside tsdf {tuple(vol.shape)}")
+    prm = sweep_params(cam, bbox, axis, flip, ns, k0, ns_local, cfg.res)
+    g = prm.grid
+    flags = None
+    if slab_occupied is not None:      # the kernel reads torch's one-byte bools
+        flags = torch.as_tensor(slab_occupied, device=dev).contiguous()
+        native.check(flags, "slab_occupied", torch.bool, (ns_local,), dev)
+    init = (None, None, None)
+    if window is not None and window.halo_valid:
+        init = tuple(t.contiguous() for t in _window_carry(g, window, cfg.res))
+    hit = torch.empty((ti, si), dtype=torch.float32, device=dev)
+    hit_s = torch.empty_like(hit)
+    nsamp = torch.empty_like(hit)
+    hit_color = torch.empty((ti, si, 4), dtype=torch.float32, device=dev)
+    hit_grad = torch.empty((ti, si, 3), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    consts = (g.r_grid, g.c_grid, g.eye_p, prm.sigma, prm.s_back, prm.grad_r, prm.grad_c)
+    _SWEEP_MARCH(vol.data_ptr(), col.data_ptr(), ptr(flags), *(t.data_ptr() for t in consts),
+                 *(ptr(t) for t in init), hit.data_ptr(), hit_s.data_ptr(),
+                 hit_color.data_ptr(), hit_grad.data_ptr(), nsamp.data_ptr(),
+                 *vol.stride(), *col.stride(), ns_local, nr, nc, ti, si, ns, k0, p0, int(flip),
+                 int(vol.dtype == torch.float32), int(col.dtype == torch.float32),
+                 prm.ds, float(np.float32(-limit)))
+    return SweepResult(hit, hit_s, hit_color, hit_grad,
+                       (g.g_lo[0], g.g_hi[0], g.g_lo[1], g.g_hi[1]), g.eye_p, nsamp)
+
+
+def sweep(tsdf: torch.Tensor, cvol: torch.Tensor, cam: RenderCamera, bbox: Bbox,
+          limit: float, axis: int, flip: bool, cfg: SweepConfig = SweepConfig(),
+          slab_occupied: np.ndarray | torch.Tensor | None = None,
+          zmajor: bool = True, window: SweepWindow | None = None) -> SweepResult:
+    """Front-to-back sweep along ``axis``. ``tsdf`` [Vz, Vy, Vx] and the
+    color volume ``cvol``: Z-MAJOR [Vz, 4, Vy, Vx] (the dense-emit layout)
+    or, with ``zmajor=False``, channels-last [Vz, Vy, Vx, 4];
+    ``slab_occupied`` bool[n_slices] in physical slice order, a host array
+    or a device tensor (``slab_occupancy_device``, no host sync): an empty
+    slice crosses nothing and decays the carry to the clear values.
+
+    ``window``: sweep only a logical k-window over a local slab
+    (``SweepWindow``): ``tsdf``/``cvol`` then hold the slab's slices
+    (physically contiguous), ``slab_occupied`` the slab's flags, and the
+    result folds with ``merge_sweep``. The grid extents and the step use
+    the global slice count.
+
+    A CUDA volume takes the kernel (``sweep_cuda``), a CPU one the plain
+    version (``sweep_plain``)."""
+    run = sweep_cuda if native.is_cuda(tsdf) else sweep_plain
+    return run(tsdf, cvol, cam, bbox, limit, axis, flip, cfg, slab_occupied, zmajor, window)
 
 
 def screen_tile(h: int, w: int, ti: int, si: int):

@@ -746,3 +746,161 @@ def test_four_slabs_cuda(dev):
         mv = _variant_camera(pipe, *v)
         _assert_frames_equal(fs.run_slabs(pipe, 4, depth, color, mv, proj),
                              pipe.step(depth, color, mv, proj))
+
+
+# -- the sweep: csrc/sweep_march.cu against sweep_plain ------------------------
+
+SWEEP_FIELDS = ("hit", "hit_s", "hit_color", "hit_grad", "num_samples")
+SWEEP_RES = (48, 64, 80)       # (x, y, z): a non-cubic volume
+SWEEP_CASES = {
+    # case: (z-major color, TSDF dtype, color dtype, flags, grid (Ti, Si))
+    "zmajor_bf16_bench_flags": (True, torch.bfloat16, torch.bfloat16, "bench", (56, 72)),
+    "zmajor_bf16_no_flags": (True, torch.bfloat16, torch.bfloat16, None, (64, 64)),
+    "channels_last_f32_all_on": (False, torch.float32, torch.bfloat16, "on", (50, 70)),
+    "channels_last_f32_all_off": (False, torch.float32, torch.float32, "off", (72, 40)),
+    "channels_last_f32_host_flags": (False, torch.float32, torch.float32, "host", (48, 96)),
+}
+
+
+def _sweep_volumes(zmajor, tsdf_dtype, color_dtype, device):
+    """A sphere TSDF truncated at 0.02 and a random color volume (numpy,
+    seed 3) at SWEEP_RES; the brick layers flagged empty by the bench-like
+    mask16 of ``_sweep_mask`` hold the clear values."""
+    vx, vy, vz = SWEEP_RES
+    rng = np.random.default_rng(3)
+    c = [(np.arange(v, dtype=np.float32) + 0.5) / v for v in (vz, vy, vx)]
+    z, y, x = np.meshgrid(*c, indexing="ij")
+    r = np.sqrt((x - 0.45) ** 2 + (y - 0.5) ** 2 + (z - 0.55) ** 2)
+    tsdf = torch.from_numpy(np.clip(0.3 - r, -0.02, 0.02).astype(np.float32))
+    color = torch.from_numpy(rng.random((vz, vy, vx, 4), dtype=np.float32))
+    m = _sweep_mask().repeat_interleave(16, 0).repeat_interleave(16, 1).repeat_interleave(16, 2)
+    tsdf = torch.where(m, tsdf, -0.02).to(tsdf_dtype)
+    color = torch.where(m[..., None], color, 0.0).to(color_dtype)
+    if zmajor:
+        color = color.permute(0, 3, 1, 2).contiguous()
+    return tsdf.to(device), color.to(device)
+
+
+def _sweep_mask():
+    """16^3 block mask at SWEEP_RES with empty brick layers along every
+    axis (2 of 5 along z: near the bench's 37.5% of empty slices)."""
+    vx, vy, vz = SWEEP_RES
+    mask16 = torch.ones((vz // 16, vy // 16, vx // 16), dtype=torch.bool)
+    mask16[0], mask16[3], mask16[:, 2], mask16[:, :, 1] = False, False, False, False
+    return mask16
+
+
+def _sweep_camera(axis, flip, turn=0.0):
+    """A RenderCamera whose sweep is (axis, flip), turned by ``turn``
+    radians about the volume's vertical."""
+    from rgbd_recon_torch.ops import raymarch as rm, raymarch_fast as rmf
+    from rgbd_recon_torch.utils.math import look_at, perspective
+
+    bbox = Bbox.default()
+    center = (bbox.min + bbox.max) * 0.5
+    d = np.array([0.25, 0.35, 0.3], np.float32)
+    d[axis] = 3.0 if flip else -3.0
+    cs, sn = np.cos(turn), np.sin(turn)
+    d = np.array([cs * d[0] + sn * d[2], d[1], -sn * d[0] + cs * d[2]], np.float32)
+    mv = look_at(center + d, center, [0, 0, 1] if axis == 1 else [0, 1, 0])
+    assert rmf.pick_axis(mv, rm.vol_to_world_matrix(bbox)) == (axis, flip)
+    return mv, perspective(50.0, 1.5, 0.1, 200.0)
+
+
+def _assert_sweeps_equal(got, want, what):
+    """Bit for bit, up to the sign of a zero (torch.equal compares values)."""
+    for f in SWEEP_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+@pytest.mark.parametrize("axis, flip", [(a, f) for a in (2, 0, 1) for f in (False, True)])
+def test_sweep_march_cuda(dev, axis, flip, case):
+    """The kernel equals sweep_plain on the card bit for bit, with one launch
+    a sweep, at every (axis, flip): z-major and channels-last color, bf16
+    and f32 volumes, flags absent, all on, all off, the bench's pattern (a
+    device tensor, as the fused frame) and a host array (the staged frame),
+    Ti != Si with ragged tiles, a non-cubic volume."""
+    from rgbd_recon_torch.ops import raymarch as rm, raymarch_fast as rmf
+
+    zmajor, td, cd, flags, grid = SWEEP_CASES[case]
+    tsdf, cvol = _sweep_volumes(zmajor, td, cd, dev)
+    mv, proj = _sweep_camera(axis, flip)
+    cam = rm.RenderCamera(torch.from_numpy(mv).to(dev), torch.from_numpy(proj).to(dev), 96, 64)
+    n = SWEEP_RES[axis]
+    occ = {None: None, "on": torch.ones(n, dtype=torch.bool, device=dev),
+           "off": torch.zeros(n, dtype=torch.bool, device=dev),
+           "bench": rmf.slab_occupancy_device(_sweep_mask().to(dev), axis, n),
+           "host": rmf.slab_occupancy(_sweep_mask(), axis, n)}[flags]
+    cfg = rmf.SweepConfig(res=grid)
+    before = native.KERNELS["sweep_march"].launches
+    got = rmf.sweep(tsdf, cvol, cam, Bbox.default(), 0.02, axis, flip, cfg, occ, zmajor)
+    assert native.KERNELS["sweep_march"].launches == before + 1
+    want = rmf.sweep_plain(tsdf, cvol, cam, Bbox.default(), 0.02, axis, flip, cfg, occ, zmajor)
+    _assert_sweeps_equal(got, want, (axis, flip, case))
+    if flags == "off":
+        assert float(got.hit.sum()) == 0.0 and float(got.num_samples.min()) == n
+    else:
+        assert float(got.hit.mean()) > 0.01
+
+
+@pytest.mark.parametrize("axis, flip", [(a, f) for a in (2, 0, 1) for f in (False, True)])
+def test_sweep_march_window_cuda(dev, axis, flip):
+    """SweepWindow starts: each of 4 slabs (strided views of the volume)
+    swept from its halo carry by the kernel equals sweep_plain's window bit
+    for bit, with the bench-like flags."""
+    from rgbd_recon_torch.ops import raymarch as rm, raymarch_fast as rmf
+    from rgbd_recon_torch.parallel import fast_sharded as fs
+
+    tsdf, cvol = _sweep_volumes(True, torch.bfloat16, torch.bfloat16, dev)
+    mv, proj = _sweep_camera(axis, flip)
+    cam = rm.RenderCamera(torch.from_numpy(mv).to(dev), torch.from_numpy(proj).to(dev), 96, 64)
+    ns, arr = SWEEP_RES[axis], 2 - axis
+    nl = ns // 4
+    occ = rmf.slab_occupancy(_sweep_mask(), axis, ns)
+    cdim = {0: 0, 1: 2, 2: 3}[arr]
+    slabs = []
+    for rank in range(4):
+        s, cs = [slice(None)] * 3, [slice(None)] * 4
+        s[arr] = cs[cdim] = slice(rank * nl, (rank + 1) * nl)
+        slabs.append((tsdf[tuple(s)], cvol[tuple(cs)]))
+    halos = [fs.halo_send(v, c, axis, flip, True) for v, c in slabs]
+    cfg = rmf.SweepConfig(res=(56, 72))
+    starts = 0
+    for rank, (v, c) in enumerate(slabs):
+        win = fs.window_of(halos, rank, 4, ns, flip)
+        starts += win.halo_valid
+        args = (v, c, cam, Bbox.default(), 0.02, axis, flip, cfg,
+                occ[rank * nl:(rank + 1) * nl], True, win)
+        _assert_sweeps_equal(rmf.sweep(*args), rmf.sweep_plain(*args), (axis, flip, rank))
+    assert starts == 3
+
+
+def test_sweep_march_fused_two_cameras_cuda(dev):
+    """One fused graph captured once and replayed at two cameras of one
+    (axis, flip): each frame equals, bit for bit, the staged frame whose
+    sweep is sweep_plain at that camera (a kernel that kept the capture's
+    camera would fail the second); one sweep launch a frame."""
+    from rgbd_recon_torch.ops import raymarch_fast as rmf
+
+    pipe, depth, color, mv, proj = _small_pipeline(dev, fused=True)
+    mv2 = _orbit_camera(pipe, *pipe._axis(mv)[1])
+    pipe.step(depth, color, mv, proj)                 # the capture
+    got = []
+    for cam in (mv, mv2, mv):
+        before = native.KERNELS["sweep_march"].launches
+        got.append(pipe.step(depth, color, cam, proj))
+        torch.cuda.synchronize()
+        assert native.KERNELS["sweep_march"].launches == before + 1
+    assert len(pipe._graphs.keys()) == 1
+    twin, *_ = _small_pipeline(dev)
+    kernel = rmf.sweep
+    rmf.sweep = rmf.sweep_plain
+    try:
+        want = [twin.step(depth, color, cam, proj) for cam in (mv, mv2)]
+    finally:
+        rmf.sweep = kernel
+    _assert_same(got[0], want[0], "camera 1")
+    _assert_same(got[1], want[1], "camera 2")
+    _assert_same(got[2], want[0], "camera 1 again")
+    assert not torch.equal(got[0].color, got[1].color)
