@@ -2303,7 +2303,8 @@ def main() -> int:
                    {"integrate_affine": (pl, "integrate_affine")})
     if pipe._dense_emit or pipe.affine is None:
         raise RuntimeError("the 240^3 volume did not take the block-major integrator")
-    (fr, aff, tcfg, m16, maxb, woff, wy), _ = recs["integrate_affine"].calls[0]
+    (fr, aff, tcfg, m16, maxb, woff, wy), kw = recs["integrate_affine"].calls[0]
+    win = {"wx": kw["wx"], "xstride": kw["xstride"]}     # the pipeline's: the whole frame
     idx, count, slots = occupied_bricks(m16, maxb)
     packed = pack_frames(fr)
     aargs = (packed, aff.coeffs, idx, count, woff, tcfg.res, wy, float(tcfg.limit))
@@ -2311,16 +2312,16 @@ def main() -> int:
     print(f"  integrate_affine: {int(count)} fused bricks of {slots.numel()} at {tcfg.res}")
     check_integrator("integrate_affine", "rgbd_recon_torch/csrc/integrate_dense.cu",
                      "rgbd_recon_tpu/ops/tsdf_persist.py:787",
-                     lambda: tsdf_persist.integrate_affine_cuda(*kargs),
-                     lambda: tsdf_persist.integrate_affine_plain(*aargs), tcfg.limit, 5,
+                     lambda: tsdf_persist.integrate_affine_cuda(*kargs, **win),
+                     lambda: tsdf_persist.integrate_affine_plain(*aargs, **win), tcfg.limit, 5,
                      *integrator_work(packed, int(count), (slots.numel() + int(count) + 1) * 4,
                                       tcfg.res, 12, 3 * 40 + 8, FUSE_OPS))
 
     # kernel 6 in raw mode (block-major, no clear) against its plain
     # version on the visited blocks; its work: the inputs as above, the
     # occupied blocks and the visited flags written
-    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*kargs, raw=True)
-    pvbm, pcbm, pvisited = tsdf_persist.integrate_affine_plain(*aargs, raw=True)
+    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*kargs, raw=True, **win)
+    pvbm, pcbm, pvisited = tsdf_persist.integrate_affine_plain(*aargs, raw=True, **win)
     vis = visited.nonzero().squeeze(1)
     v, pv = vbm[vis], pvbm[vis]
     off = float(((v - pv).abs() > 1e-4).float().mean())
@@ -2333,8 +2334,8 @@ def main() -> int:
            "visited as the plain version's; on them <1e-4 of voxels off >1e-4, <1e-3 color "
            "off >1e-2", torch.equal(visited, pvisited) and vis.numel() == n_occ and off < 1e-4
            and cd < 1e-3,
-           lambda: tsdf_persist.integrate_affine_cuda(*kargs, raw=True),
-           lambda: tsdf_persist.integrate_affine_plain(*aargs, raw=True), 5,
+           lambda: tsdf_persist.integrate_affine_cuda(*kargs, raw=True, **win),
+           lambda: tsdf_persist.integrate_affine_plain(*aargs, raw=True, **win), 5,
            packed.numel() * 4 + (slots.numel() + n_occ + 1) * 4
            + n_occ * packed.shape[0] * (3 * 40 + 8)
            + n_occ * 4096 * 12 + visited.numel(),
@@ -2344,7 +2345,7 @@ def main() -> int:
     # kernel 6 in raw mode, then kernel 8: bit for bit the voxel-order
     # output of kernel 6; kernel 8 exactly its plain version
     dense_v, dense_c = assemble.scatter_dense_cuda(vbm, cbm, idx, count, tcfg.res, tcfg.limit)
-    want_v, want_c = tsdf_persist.integrate_affine_cuda(*kargs)
+    want_v, want_c = tsdf_persist.integrate_affine_cuda(*kargs, **win)
     same = (torch.equal(dense_v, want_v) and torch.equal(dense_c.permute(1, 2, 3, 0), want_c)
             and int(visited.sum()) == int(count))
     print(f"  integrate_affine raw + scatter_dense bit for bit the voxel-order output: "
@@ -2394,7 +2395,7 @@ def main() -> int:
     for k in native.KERNELS.values():
         k.launches = 0
     vbm, cbm, visited = tsdf_persist.integrate_affine(fr, aff, tcfg, m16, maxb, woff, wy,
-                                                      raw=True)
+                                                      raw=True, **win)
     idx, _, count = occupied_list(m16, maxb)
     dense_v, dense_c = assemble.scatter_dense(vbm, cbm, idx, count, tcfg.res, tcfg.limit)
     torch.cuda.synchronize()

@@ -3,8 +3,10 @@ the dense emit cannot tile (mirrors ``rgbd_recon_tpu/ops/tsdf_persist.py``).
 
 ``integrate_affine`` is the port of the TPU kernel
 ``integrate_affine_pallas``: the fusion of kernel 1 (ops/tsdf_dense.py)
-with every sensor FULL (no depth-band classes), the fixed 64-col windows
-at stride 16 and auto-sized rows, emitting f32 TSDF [Vz, Vy, Vx] and bf16
+with every sensor FULL (no depth-band classes), by default the TPU
+kernel's fixed 64-col windows at stride 16 (``wx``, ``xstride``; the
+pipeline gives it the whole frame, see ``FramePipeline._session_bakes``),
+emitting f32 TSDF [Vz, Vy, Vx] and bf16
 color [Vz, Vy, Vx, 4] in voxel order with the clear values where no brick
 is occupied. With ``raw=True`` it returns what the TPU kernel itself
 emits, one block per brick (``integrate_affine_pallas(raw=True)``):
@@ -29,11 +31,11 @@ XSTRIDE2 = 16    # x-block stride
 
 
 def integrate_affine_plain(packed, coeffs, idx, count, win_off, res, wy, limit,
-                           raw: bool = False):
+                           raw: bool = False, wx: int = WX2, xstride: int = XSTRIDE2):
     """PyTorch form of kernel 6 (see integrate_affine); takes the kernel's
     arguments."""
     out = integrate_quadratic_plain(packed, coeffs, idx, count, win_off, None, res,
-                                    wy, WX2, XSTRIDE2, limit, raw)
+                                    wy, wx, xstride, limit, raw)
     return (out[0], out[1].to(torch.bfloat16)) + out[2:]
 
 
@@ -42,7 +44,7 @@ _INTEGRATE_AFFINE = native.Kernel(
 
 
 def integrate_affine_cuda(planes, coeffs, idx, count, slots, win_off, res, wy, limit,
-                          raw: bool = False):
+                          raw: bool = False, wx: int = WX2, xstride: int = XSTRIDE2):
     """Kernel 6 on the card (``csrc/integrate_dense.cu``,
     ``rr_integrate_affine``): the arguments of ``integrate_affine_plain``
     with the frame as ``tsdf_fast.pack_planes`` gives it and the per-brick
@@ -60,16 +62,17 @@ def integrate_affine_cuda(planes, coeffs, idx, count, slots, win_off, res, wy, l
         color = torch.empty((vz, vy, vx, 4), dtype=torch.bfloat16, device=dev)
         visited = None
     _INTEGRATE_AFFINE(*ptrs, tsdf.data_ptr(), color.data_ptr(),
-                      visited.data_ptr() if raw else None, *dims, wy, WX2, XSTRIDE2, limit)
+                      visited.data_ptr() if raw else None, *dims, wy, wx, xstride, limit)
     return (tsdf, color, visited) if raw else (tsdf, color)
 
 
 def integrate_affine(frames, affine: AffineTables, cfg: TsdfConfig, mask16: torch.Tensor,
-                     max_bricks: int, win_off: torch.Tensor, wy: int, raw: bool = False):
+                     max_bricks: int, win_off: torch.Tensor, wy: int, raw: bool = False,
+                     wx: int = WX2, xstride: int = XSTRIDE2):
     """Fused TSDF f32[Vz, Vy, Vx] + color bf16[Vz, Vy, Vx, 4] of the
     occupied 16^3 bricks of ``mask16`` (the first ``max_bricks`` in
     ascending order). ``win_off`` i32[K, NB, 2] from
-    win_offsets_affine(affine, h, w, wy, WX2, XSTRIDE2). ``raw``: the
+    win_offsets_affine(affine, h, w, wy, wx, xstride). ``raw``: the
     block-major (TSDF f32[NB, 32, 128], color bf16[NB, 4, 32, 128], visited
     bool[NB]) instead; blocks that are not visited may hold anything."""
     vx, vy, vz = cfg.res
@@ -78,6 +81,6 @@ def integrate_affine(frames, affine: AffineTables, cfg: TsdfConfig, mask16: torc
     idx, count, slots = occupied_bricks(mask16, max_bricks)
     if native.is_cuda(frames.depth):
         return integrate_affine_cuda(pack_planes(frames), affine.coeffs, idx, count, slots,
-                                     win_off, cfg.res, wy, float(cfg.limit), raw)
+                                     win_off, cfg.res, wy, float(cfg.limit), raw, wx, xstride)
     return integrate_affine_plain(pack_frames(frames), affine.coeffs, idx, count, win_off,
-                                  cfg.res, wy, float(cfg.limit), raw)
+                                  cfg.res, wy, float(cfg.limit), raw, wx, xstride)

@@ -115,7 +115,8 @@ def integrate_local(pipe, plan: SlabPlan, bakes: SlabBakes, frames, mask16: torc
         if pipe._dense_emit:
             return integrate_dense(frames, bakes.affine, cfg_l, m, mb, bakes.win_off,
                                    pipe._wy, pipe._wx, pipe._xstride)
-        return integrate_affine(frames, bakes.affine, cfg_l, m, mb, bakes.win_off, pipe._wy)
+        return integrate_affine(frames, bakes.affine, cfg_l, m, mb, bakes.win_off, pipe._wy,
+                                wx=pipe._wx, xstride=pipe._xstride)
     if pipe._use_pallas():
         return tsdf_sparse.integrate_sparse(frames, bakes.tables, cfg_l, m, mb, bakes.win_off)
     return tsdf_fast.integrate_sparse(frames, bakes.tables, cfg_l, m, mb,

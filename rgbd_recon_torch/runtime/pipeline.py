@@ -69,8 +69,10 @@ pipeline starts its four stage timers empty. With the span recorder on
 (``utils.timers.SPANS``, off by default) each step is a ``frame`` span:
 fused on the card, host spans of the key, the load, the launch and the
 outputs, and device spans of the stages (3recon as its sweep and its
-shade) timed inside the graph; a fused CPU frame has the same stage
-spans on the host clock, a staged frame only ``frame``.
+shade) timed inside the graph, with counts of the slices swept and of the
+integrator's (sensor, block) pairs (``_count_pairs``); a fused CPU frame
+has the same stage spans on the host clock, a staged frame only
+``frame``.
 """
 from __future__ import annotations
 
@@ -94,7 +96,7 @@ from ..ops import tsdf as tsdf_ops
 from ..ops import tsdf_fast
 from ..ops.tsdf_dense import integrate_dense
 from ..ops.tsdf_fast import BRICK
-from ..ops.tsdf_persist import WX2, XSTRIDE2, integrate_affine
+from ..ops.tsdf_persist import XSTRIDE2, integrate_affine
 from ..ops.tsdf_sparse import integrate_sparse, win_offsets_pallas
 from ..ops.warp import bake_piecewise_warp, bake_pixel_warp
 from ..utils.math import look_at, perspective
@@ -241,6 +243,12 @@ class FramePipeline:
             self._bake_key = key
         # dense emit: whole 128-voxel x-rows and the quadratic warp
         self._dense_emit = self.use_fast and self.affine is not None and vx % 128 == 0
+        if self.use_fast:
+            self._log(f"integrator at {tsdf_cfg.res}: " + (
+                "dense emit (kernel 1)" if self._dense_emit else
+                f"block-major (kernel 6; Vx % 128 = {vx % 128})" if self.affine is not None
+                else "warp table (kernel 7)" if self._use_pallas()
+                else "table integrator (tsdf_fast)"))
 
     def _bake_integrator(self) -> None:
         """The voxel->sensor bake of the fast path's integrator tier: the
@@ -359,14 +367,20 @@ class FramePipeline:
             elif self.affine is None:
                 self._win_off = win_offsets_pallas(self.tables, h, w)
             else:
-                self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
                 if self._dense_emit:
+                    self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
                     self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(
                         self.affine, w)
+                    self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
+                              f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
                 else:
-                    self._wx, self._xstride, clip_x = WX2, XSTRIDE2, 0.0
-                self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
-                          f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
+                    # kernel 6 reads its taps from the frame in device memory,
+                    # so its window is the whole frame and clamps no footprint;
+                    # the TPU kernel's 48 rows and 64 columns clamped a fifth of
+                    # the occupied (sensor, block) pairs of five sensors at
+                    # 208x224x208
+                    self._wy, self._wx, self._xstride = h, w, XSTRIDE2
+                    self._log(f"integration window: the whole {h}x{w} frame (block-major)")
                 self._win_off = tsdf_affine.win_offsets_affine(
                     self.affine, h, w, self._wy, self._wx, self._xstride)
         if (self._cull_bake is None and self.use_fast and self.affine is not None
@@ -425,12 +439,32 @@ class FramePipeline:
         if self.affine is None:
             return integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
                                     self.max_bricks, self._win_off)
+        self._count_pairs(pre)
         if not self._dense_emit:
             return integrate_affine(frames, self.affine, self.tsdf_cfg, mask16,
-                                    self.max_bricks, self._win_off, self._wy)
+                                    self.max_bricks, self._win_off, self._wy,
+                                    wx=self._wx, xstride=self._xstride)
         return integrate_dense(
             frames, self.affine, self.tsdf_cfg, mask16, self.max_bricks,
             self._win_off, self._wy, self._wx, self._xstride, pre.cls)
+
+    def _count_pairs(self, pre: PreOut) -> None:
+        """The quadratic-warp integrators' counters (kernels 1 and 6), with
+        the recorder on: ``integrate.pairs``, the (sensor, block) pairs
+        handed to the integrator (every sensor with each of the first
+        ``max_bricks`` occupied blocks of the culled ``mask16``), and
+        ``integrate.pairs_culled``, those of them that the depth-band cull
+        classes NONE (1: provably no change) or FRONT (2: in front of the
+        sensor's surface). Kernel 1 skips their fusion (NONE) or sets the
+        front value without sampling (FRONT); INVALID pairs (3) fuse the
+        corner pixel there. Kernel 6 takes no classes and fuses them all."""
+        if not SPANS.on:
+            return
+        m = pre.mask16.reshape(-1)
+        fused = m & (torch.cumsum(m, 0) <= self.max_bricks)
+        SPANS.count("integrate.pairs", fused.expand(pre.frames.depth.shape[0], -1))
+        if pre.cls is not None:
+            SPANS.count("integrate.pairs_culled", ((pre.cls == 1) | (pre.cls == 2)) & fused)
 
     def _render(self, pre: PreOut, vol, cvol, mv, proj, axis, flip):
         """3recon: the sweep-composited raymarch, or on the reference path

@@ -53,9 +53,10 @@ def summarise(rec: dict, chunks: set, before: bool = False) -> dict:
     ``dev.<span>`` in ms (a frame's spans of one name added up),
     ``dev.device.idle``, ``device.span_idle_pct`` (100 x (1 - the frame's
     top-level device spans over the device time from its start to the next
-    frame's start)), ``render.slices_occupied_pct``, ``graph.nodes`` (the
-    mean over the captures), the frames read and ``dropped``. A median
-    with no frame to read is None."""
+    frame's start)), ``render.slices_occupied_pct``, ``integrate.pairs`` and
+    ``integrate.pairs_culled`` (the quadratic-warp integrators' counters),
+    ``graph.nodes`` (the mean over the captures), the frames read and
+    ``dropped``. A median with no frame to read is None."""
     spans = rec["spans"]
     first = min(chunks, default=None)
     if before:
@@ -95,6 +96,8 @@ def summarise(rec: dict, chunks: set, before: bool = False) -> dict:
     swept = counts.get("render.slices_swept", {})
     out["render.slices_occupied_pct"] = _median(
         [100.0 * v / swept[f] for f, v in occ.items() if f in swept and ok(f)])
+    for name in ("integrate.pairs", "integrate.pairs_culled"):
+        out[name] = _median([v for f, v in counts.get(name, {}).items() if ok(f)])
     nodes = [c["value"] for c in rec["counts"] if c["name"] == "graph.nodes"]
     out["graph.nodes"] = statistics.mean(nodes) if nodes else None
     out["frames_read"] = len(read)

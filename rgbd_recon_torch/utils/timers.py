@@ -22,10 +22,11 @@ both over. Spans of one ``frame()`` share its frame id. Host spans read
 ``time.perf_counter_ns()`` and, under an active ``torch.profiler``, are
 ``record_function`` ranges too. Inside a CUDA-graph capture made with
 the recorder on (``probe``), a span becomes a pair of timing events
-captured as event-record nodes, and one device count is summed into a
-device scalar; plain events around a fused frame (``mark_start``,
-``copies``, ``mark_end``; two sets, made once and recorded again every
-other frame) bound its device span and time its copies.
+captured as event-record nodes, and each device count is summed into an
+int64 device scalar of its own; plain events around a fused frame
+(``mark_start``, ``copies``, ``mark_end``; two sets, made once and
+recorded again every other frame) bound its device span and time its
+copies.
 Both are read at the next ``frame()``, before it replays anything, and
 only if complete: the recorder never synchronises.
 """
@@ -208,16 +209,19 @@ class _HostSpan:
 
 class _Probe:
     """One CUDA graph's device spans and counts, made while it is captured:
-    spans as pairs of timing events (event-record nodes of the graph), one
-    device count summed into ``total`` by the graph, constants kept here.
-    Read after each replay through ``Spans.mark_end``."""
+    spans as pairs of timing events (event-record nodes of the graph), each
+    device count summed by the graph into its own int64 element of
+    ``total`` (up to ``DEVICE_COUNTS``), constants kept here. Read after
+    each replay through ``Spans.mark_end``."""
+
+    DEVICE_COUNTS = 4
 
     def __init__(self, device: torch.device):
         self.pairs: list = []      # [name id, parent pair or -1, start event, end event]
-        self.counts: list = []     # (name id, constant, or None for ``total``)
-        self.total = torch.zeros((), dtype=torch.int64, device=device)
-        self.host = torch.zeros((), dtype=torch.int64, pin_memory=True)
-        self.summed = False
+        self.counts: list = []     # (name id, constant, or None: the next element of ``total``)
+        self.total = torch.zeros(self.DEVICE_COUNTS, dtype=torch.int64, device=device)
+        self.host = torch.zeros(self.DEVICE_COUNTS, dtype=torch.int64, pin_memory=True)
+        self.summed = 0            # elements of ``total`` in use
         self._stack: list[int] = []
 
     @contextlib.contextmanager
@@ -238,10 +242,10 @@ class _Probe:
         if not isinstance(value, torch.Tensor):
             self.counts.append((nid, int(value)))
             return
-        if self.summed:
-            raise RuntimeError("a graph carries one device count")
-        torch.sum(value.reshape(-1), dim=0, dtype=torch.int64, out=self.total)
-        self.summed = True
+        if self.summed == self.DEVICE_COUNTS:
+            raise RuntimeError(f"a graph carries at most {self.DEVICE_COUNTS} device counts")
+        torch.sum(value.reshape(-1), dim=0, dtype=torch.int64, out=self.total[self.summed])
+        self.summed += 1
         self.counts.append((nid, None))
 
 
@@ -451,8 +455,9 @@ class Spans:
         for nid, parent, a, b in probe.pairs:
             slots.append(self._device_span(nid, slots[parent] if parent >= 0 else top, frame,
                                            _ns(start, a), _ns(start, b)))
+        summed = iter(probe.host.reshape(-1).tolist())
         for nid, value in probe.counts:
-            self._count(nid, frame, int(probe.host) if value is None else value)
+            self._count(nid, frame, next(summed) if value is None else value)
 
     def collect(self) -> dict:
         """What was recorded since ``enable``: ``spans`` and ``counts`` as

@@ -240,11 +240,12 @@ def test_integrate_affine_cuda(dev):
     pipe, depth, color, mv, proj = _small_pipeline(dev, n=96, use_pallas=True)
     packed, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
     rest = (pipe._win_off, pipe.tsdf_cfg.res, pipe._wy, pipe.tsdf_cfg.limit)
+    win = {"wx": pipe._wx, "xstride": pipe._xstride}
     vol, cvol = tsdf_persist.integrate_affine_cuda(planes, pipe.affine.coeffs, idx, count,
-                                                   slots, *rest)
+                                                   slots, *rest, **win)
     assert vol.dtype == torch.float32 and cvol.shape == (96, 96, 96, 4)
     _assert_integrator_bound(vol, cvol, *tsdf_persist.integrate_affine_plain(
-        packed, pipe.affine.coeffs, idx, count, *rest))
+        packed, pipe.affine.coeffs, idx, count, *rest, **win))
 
 
 def test_scatter_dense_cuda(dev):
@@ -274,11 +275,12 @@ def test_integrate_affine_raw_scatter_cuda(dev):
     _, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
     args = (planes, pipe.affine.coeffs, idx, count, slots, pipe._win_off, pipe.tsdf_cfg.res,
             pipe._wy, pipe.tsdf_cfg.limit)
-    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*args, raw=True)
+    win = {"wx": pipe._wx, "xstride": pipe._xstride}
+    vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*args, raw=True, **win)
     assert int(visited.sum()) == int(count) > 0
     v, c = assemble.scatter_dense_cuda(vbm, cbm, idx, count, pipe.tsdf_cfg.res,
                                        pipe.tsdf_cfg.limit)
-    want_v, want_c = tsdf_persist.integrate_affine_cuda(*args)
+    want_v, want_c = tsdf_persist.integrate_affine_cuda(*args, **win)
     assert torch.equal(v, want_v) and torch.equal(c.permute(1, 2, 3, 0), want_c)
 
 
@@ -904,3 +906,101 @@ def test_sweep_march_fused_two_cameras_cuda(dev):
     _assert_same(got[1], want[1], "camera 2")
     _assert_same(got[2], want[0], "camera 1 again")
     assert not torch.equal(got[0].color, got[1].color)
+
+
+# -- the benchmark's k5-208 cell: five sensors, 208 x 224 x 208, block-major ---
+
+K5_SEED = 2**31 + 18
+
+
+@pytest.fixture(scope="module")
+def k5_208():
+    """The rig, two frames (five sensors, depth 512x424, color 1280x1080 u8)
+    and the camera of the benchmark cell ``k5-208.static``, from
+    ``recon_bench``'s generator on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from recon_bench import discover, harness, schedule
+
+    cell = discover.cell("k5-208.static")
+    rig, depth, color = harness.make_inputs(cell.config, cell.traffic, K5_SEED, "cuda")
+    mv, proj = schedule.make(cell.config, cell.traffic, K5_SEED).cameras[0]
+    return cell, rig, depth[:2], color[:2], mv, proj
+
+
+def _k5_pipeline(k5_208):
+    from recon_bench import harness
+
+    cell, rig, *_ = k5_208
+    pipe = harness.pipeline(cell.config, rig, torch.device("cuda"))
+    assert pipe.tsdf_cfg.res == (208, 224, 208)
+    assert not pipe._dense_emit and pipe.affine is not None
+    return pipe
+
+
+def test_k5_208_fused_matches_staged_cuda(dev, k5_208, monkeypatch):
+    """At the cell's size the fused frame equals the staged frame bit for
+    bit, on two frames; the staged frame sweeps the channels-last color
+    volume (``zmajor`` False); each replay launches kernel 6
+    (``integrate_affine``) and the sweep once and kernel 1 never."""
+    from rgbd_recon_torch.ops import raymarch_fast as rmf
+
+    _, _, depth, color, mv, proj = k5_208
+    assert depth.shape[1:] == (5, 424, 512) and color.shape[1:] == (5, 1080, 1280, 3)
+    assert color.dtype == np.uint8
+    pipe = _k5_pipeline(k5_208)
+    pipe.cfg = pipe.cfg._replace(fused=False)
+    layouts = []
+    sweep = rmf.sweep
+
+    def spy(*args):
+        layouts.append(args[-1])
+        return sweep(*args)
+
+    monkeypatch.setattr(rmf, "sweep", spy)
+    staged = [pipe.step(depth[i], color[i], mv, proj) for i in range(2)]
+    monkeypatch.setattr(rmf, "sweep", sweep)
+    assert layouts == [False, False]
+    pipe.cfg = pipe.cfg._replace(fused=True)
+    pipe.warmup(depth[0], color[0], mv, proj)          # the capture
+    for k in native.KERNELS.values():
+        k.launches = 0
+    for i in (0, 1, 0):
+        out = pipe.step(depth[i], color[i], mv, proj)
+        torch.cuda.synchronize()
+        _assert_same(out, staged[i], f"frame {i}")
+    launches = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+    assert launches["integrate_affine"] == 3 and launches["sweep_march"] == 3, launches
+    assert "integrate_dense" not in launches, launches
+    assert len(pipe._graphs.keys()) == 1
+
+
+def test_k5_208_pair_counters_cuda(dev, k5_208):
+    """With the recorder on, each replayed frame counts ``integrate.pairs``
+    = 5 x its occupied blocks and ``integrate.pairs_culled`` between 0 and
+    that, each from its own device scalar, beside the slice counter."""
+    from rgbd_recon_torch.utils.timers import SPANS
+
+    _, _, depth, color, mv, proj = k5_208
+    SPANS.enable()
+    try:
+        pipe = _k5_pipeline(k5_208)
+        occ = []
+        for i in (0, 1, 0):
+            occ.append(int(pipe.step(depth[i], color[i], mv, proj).occupied_bricks))
+            torch.cuda.synchronize()
+        with SPANS.frame():         # reads the last frame's device events
+            pass
+        rec = SPANS.collect()
+    finally:
+        SPANS.disable()
+    assert rec["dropped"] == 0
+    counts = {}
+    for c in rec["counts"]:
+        counts.setdefault(c["name"], {})[c["frame"]] = c["value"]
+    pairs = [v for _, v in sorted(counts["integrate.pairs"].items())]
+    culled = [v for _, v in sorted(counts["integrate.pairs_culled"].items())]
+    assert pairs == [5 * n for n in occ] and min(occ) > 0
+    assert all(0 <= c <= p for c, p in zip(culled, pairs)) and len(culled) == 3
+    swept = counts["render.slices_swept"]
+    assert all(0 < v <= swept[f] for f, v in counts["render.slices_occupied"].items())

@@ -3,7 +3,8 @@
 CPU cases at a small size: the recorder off makes nothing, on it leaves
 every output as it was, each frame's spans nest under its ``frame`` span
 with one frame id, a full buffer counts into ``dropped``, the slice
-counter equals the slab flags' sum, the device events of a fused frame
+counter equals the slab flags' sum, the integrator's pair counters
+count its (sensor, block) pairs on both of its paths, the device events of a fused frame
 are made once and read only once complete, and ``scripts.span_split``
 takes its medians over the right frames. The ``cuda`` cases run on the card only: a
 graph captured with the recorder on against one captured with it off,
@@ -185,6 +186,35 @@ def test_slice_counter(scene, fused):
     want = int(rmf.slab_occupancy(pre.mask16, axis, n).sum())
     assert counts == {"render.slices_occupied": want, "render.slices_swept": n}
     assert 0 < want < n
+
+
+@pytest.mark.parametrize("res", [(128, 128, 128), (144, 128, 128)],
+                         ids=["dense_emit", "block_major"])
+def test_integrate_pair_counters(scene, res):
+    """On both quadratic-warp integrators, the dense emit (kernel 1, 128^3)
+    and the block-major one (kernel 6, 144 x 128 x 128), a fused CPU frame
+    counts ``integrate.pairs``, every sensor with each occupied block, and
+    ``integrate.pairs_culled``, the pairs of those blocks that the
+    depth-band cull classes NONE or FRONT; the outputs are those of a frame
+    with the recorder off, which records nothing."""
+    pipe, args = _pipeline(scene, n=res[0], tsdf_res=res, fused=True)
+    assert pipe.affine is not None and pipe._dense_emit == (res[0] % 128 == 0)
+    SPANS.enable(64)
+    SPANS.disable()
+    off = pipe.step(*args)
+    assert SPANS.collect()["counts"] == []
+    SPANS.enable()
+    on = pipe.step(*args)
+    counts = {c["name"]: c["value"] for c in SPANS.collect()["counts"]}
+    SPANS.disable()
+    _assert_same(on, off)
+    depth, col, _, _, _, _ = pipe._inputs(*args)
+    pre = pipe._pre(depth, col)
+    k, n_occ = depth.shape[0], int(on.occupied_bricks)
+    culled = ((pre.cls == 1) | (pre.cls == 2)) & pre.mask16.reshape(-1)
+    assert counts["integrate.pairs"] == k * n_occ and n_occ > 0
+    assert counts["integrate.pairs_culled"] == int(culled.sum())
+    assert 0 < counts["integrate.pairs_culled"] < k * n_occ
 
 
 class _Event:

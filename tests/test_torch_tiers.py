@@ -247,7 +247,9 @@ def test_block_major_slice_matches_jax(ref):
     cull, then kernel 6 with every sensor FULL) vs the JAX chain, at the
     render-parity bounds of tests/test_golden.py:65-69. A volume of 6
     bricks an axis takes this tier with use_pallas=True (the gate's
-    default there is the XLA table integrator)."""
+    default there is the XLA table integrator). The port's kernel 6 takes
+    the whole frame as its window; JAX's the auto-sized rows and 64 columns
+    at stride 16."""
     cfg = JTsdfConfig((N_BLOCK,) * 3, LIMIT)
     wy, _ = jaff.auto_window_rows(ref.aff, 212)
     win_off = jaff.win_offsets_affine(ref.aff, 212, 256, wy, WX2, XSTRIDE2)
@@ -263,4 +265,4 @@ def test_block_major_slice_matches_jax(ref):
         voxel_size=float(np.max(ref.bbox.size) / N_BLOCK), sweep_res=SWEEP, use_pallas=True),
         out, filled)
     assert pipe.affine is not None and not pipe._dense_emit
-    assert (pipe._wx, pipe._xstride) == (WX2, XSTRIDE2)
+    assert (pipe._wy, pipe._wx, pipe._xstride) == (212, 256, XSTRIDE2)
