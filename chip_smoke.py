@@ -260,7 +260,7 @@ APP_CONF = ("recon_mode: 1\nscreenWidth: 1280\nscreenHeight: 720\nplay: true\n"
             # the navigator's 2.5 starts 15 m out; 0.35 puts the spheres on screen
             "zoom: 0.35\n")
 DISTORT = 0.004            # bench.py BENCH_DISTORT: ~4 mm bake deformation
-PATH_KERNELS = ("bilateral_accum", "mark_bricks", "warp_screen")
+PATH_KERNELS = ("bilateral_accum", "quality", "mark_bricks", "warp_screen")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
 FLUSH_BYTES = 128 << 20    # read between cold calls: 2.5x the H100's 50 MB L2
@@ -269,6 +269,10 @@ _FLUSH = []
 # FMA 1 - dist * inv, gs * gr, wr += gr, wa += ws, the FMA bf += ws * s (the
 # clamp at 0 is a max, not counted)
 TAP_OPS = 1 + 2 + 1 + 1 + 1 + 2
+# fp32 operations of one quality tap of a pixel inside (0, 1): s - d (the abs
+# is an operand modifier), the window compare, min(dist, drm), the quotient,
+# 1 - q, the border count and the range-weight sum
+QUALITY_TAP_OPS = 7
 # fp32 operations of one (voxel, sensor) of the quadratic integrator, an FMA
 # counted as two and a __fdividef as two (reciprocal, product); clamps,
 # floors and compares not counted:
@@ -504,7 +508,7 @@ def _app_phase(rig, frames, card: str, work: str):
     from rgbd_recon_torch.utils.png import read_png
 
     dev = torch.device("cuda")
-    need = ("bilateral_accum", "mark_bricks", "warp_screen", "integrate_affine")
+    need = ("bilateral_accum", "quality", "mark_bricks", "warp_screen", "integrate_affine")
     t0 = time.perf_counter()
     scene = ks, paths, fmt = _write_app_scene(work, frames)
     rec, out_dir = os.path.dirname(paths[0]), os.path.join(work, "frames")
@@ -746,7 +750,8 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in native.KERNELS.items()}
     print(f"models: launches over the path (app modes 0/2/3, integration, calibs): {counts}")
-    need = ("warp_screen", "bilateral_accum", "mark_bricks", "integrate_sparse_window")
+    need = ("warp_screen", "bilateral_accum", "quality", "mark_bricks",
+            "integrate_sparse_window")
     if any(counts[k] == 0 for k in need):
         raise RuntimeError(f"models: kernels never launched: "
                            f"{[k for k in need if counts[k] == 0]}")
@@ -924,8 +929,8 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
         sec = [x[2] for x in shots[i:j]]
         print(f"reference (a): bricking {seg}: launches over its {j - i} frames {d}; frame_step "
               f"host ms {', '.join(f'{x * 1e3:.1f}' for x in sec)} ({card})")
-        need = (("warp_screen", "bilateral_accum", "mark_bricks", "integrate_affine")
-                if seg == "on" else ("warp_screen", "bilateral_accum"))
+        need = (("warp_screen", "bilateral_accum", "quality", "mark_bricks", "integrate_affine")
+                if seg == "on" else ("warp_screen", "bilateral_accum", "quality"))
         absent = () if seg == "on" else ("mark_bricks", "integrate_affine")
         if any(k not in d for k in need) or any(k in d for k in absent):
             raise RuntimeError(f"reference (a): bricking {seg} launched {d}")
@@ -948,7 +953,7 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
         raise RuntimeError("fast_path=False did not take the reference path")
     pipe.step(*frames[0], mv, proj)       # session bakes
     outs = drive("reference 256^3", pipe, frames, mv, proj,
-                 ("warp_screen", "bilateral_accum", "mark_bricks"), REF_BENCH_FRAMES,
+                 ("warp_screen", "bilateral_accum", "quality", "mark_bricks"), REF_BENCH_FRAMES,
                  rcfg.tsdf_res)
     skip = float(outs[0].num_samples.float().mean())
     pipe._configure(rcfg._replace(skip_space=False), keep_warp_bake=True)
@@ -1137,7 +1142,7 @@ def _fused_pinhole(pipe, frames, mv, proj, card: str, work: str, reserved_0: int
     summary = trace_fused.parse(tdir, log=lambda s: print(f"  {s}"))
     names = " ".join(summary["kernels"])
     need = ("integrate_quadratic_kernel", "warp_screen_kernel", "bilateral_accum_kernel",
-            "mark_bricks_kernel")
+            "quality_kernel", "mark_bricks_kernel")
     missing = [k for k in need if k not in names]
     if missing or summary["replays"] != 3:
         raise RuntimeError(f"fused trace: kernels {missing} not in the replays, or "
@@ -1192,7 +1197,7 @@ def _fused_reference(card: str) -> None:
     staged = [pipe.step(*f, smv, sproj) for f in sframes]
     # 256x212 color takes exact registration taps (no tile fits): no kernel 2
     _fused_phase("reference 128^3", pipe, sframes, smv, sproj, staged,
-                 ("bilateral_accum", "mark_bricks"), card)
+                 ("bilateral_accum", "quality", "mark_bricks"), card)
     if pipe._graphs.keys() != [(2, False)]:
         raise RuntimeError(f"the reference path captured {pipe._graphs.keys()}, not one graph")
 
@@ -2103,6 +2108,7 @@ def main() -> int:
     mv, proj = pipe.default_camera()
     recs = warm_up("pinhole", pipe, frames[0], mv, proj, {
         "bilateral_accum": (pp, "bilateral_accum"),
+        "quality": (pp, "quality_cuda"),
         "mark_bricks": (bricks, "mark_bricks"),
         "warp_screen_registration": (pp, "warp_screen"),
         "warp_screen_screen": (rmf, "warp_screen"),
@@ -2120,6 +2126,23 @@ def main() -> int:
            ok, lambda: pp.bilateral_accum(d_in, lim_in),
            lambda: pp.bilateral_accum_plain(d_in, lim_in), 20,
            16 * d_in.numel() + lim_in.numel() * 4, d_in.numel() * 169 * TAP_OPS)
+
+    # quality: the 13x13 stencil and its epilogue on the frame's 4 x 424 x 512
+    # pixels, bit for bit the twin; its work: the taps of the pixels inside
+    # (0, 1) (the others write 0), every depth read and every output written,
+    # the normal and world position of each pixel inside
+    q_args, _ = recs["quality"].calls[0]
+    got = pp.quality_cuda(*q_args)
+    want = pp.quality_plain(*q_args)
+    dn = q_args[0][..., 0]
+    n_in = int(((dn > 0) & (dn < 1)).sum())
+    print(f"  quality: {n_in} pixels inside (0, 1) of {dn.numel()}")
+    report("quality", "rgbd_recon_torch/csrc/quality.cu",
+           "none (rgbd_recon_tpu/ops/preprocess.py::quality, XLA ops)", _errs(got, want),
+           "bit for bit", bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
+           lambda: pp.quality_cuda(*q_args), lambda: pp.quality_plain(*q_args), 20,
+           8 * dn.numel() + 24 * n_in + q_args[3].numel() * 4,
+           n_in * 169 * QUALITY_TAP_OPS)
 
     # mark_bricks: the world points of all 4 sensors, integer-exact; its
     # work: every valid flag, the 12 bytes of each valid point (the only

@@ -15,9 +15,10 @@ edge-clamped stencils:
 The calibration lookups go through the baked pixel warp (affine
 ``PixelWarp`` or ``PiecewiseWarp``, kernel 5 on the card) or, with
 ``warp=None``, the exact per-pixel gather of the cv volumes (``sample3d``,
-the gather tier). Besides kernel 5 two hand-written kernels run here:
+the gather tier). Besides kernel 5 three hand-written kernels run here:
 ``bilateral_accum`` (the port of ``preprocess_pallas.bilateral_accum_pallas``,
-``csrc/bilateral_accum.cu``) and the color registration through
+``csrc/bilateral_accum.cu``), ``quality`` (kernel 10, ``csrc/quality.cu``,
+which replaces no TPU kernel) and the color registration through
 ``warp.warp_screen`` (warp tiers; the gather tier registers color with
 exact per-pixel taps, as the JAX package does).
 """
@@ -284,8 +285,12 @@ def normals(depth_b: torch.Tensor, rig, warp):
     return n, world_c, ~outside
 
 
-def quality(depth_b: torch.Tensor, normal_map: torch.Tensor, rig, warp) -> torch.Tensor:
-    """pre_quality.fs: (1-border_frac)^6 * (w_range/n)^6 / (6.5*d) * angle^2."""
+def quality_plain(depth_b: torch.Tensor, normal_map: torch.Tensor, world_pos: torch.Tensor,
+                  camera_positions: torch.Tensor) -> torch.Tensor:
+    """pre_quality.fs: (1-border_frac)^6 * (w_range/n)^6 / (6.5*d) * angle^2.
+    PyTorch form of kernel 10 (``quality``): 169 shifted passes of the
+    13x13 stencil, then the epilogue; ``world_pos`` f32[K, H, W, 3] is the
+    pixels' world position at d, ``camera_positions`` f32[K, 3]."""
     dn = depth_b[..., 0]
     _, h, w = dn.shape
     ks = 6
@@ -307,16 +312,46 @@ def quality(depth_b: torch.Tensor, normal_map: torch.Tensor, rig, warp) -> torch
     lateral_q = 1.0 - border / n_samples
     strong = lateral_q ** 6 * (w_range / n_samples) ** 6
     strong = strong / torch.clamp(dn * 6.5, min=1e-20)
-    if warp is not None:
-        world_pos = warp.xyz(dn)
-    else:
-        world_pos = _sample_cv_per_pixel(rig.cv_xyz, dn, pixel_texcoords(h, w, dn.device))
-    to_cam = rig.camera_positions[:, None, None, :] - world_pos
+    to_cam = camera_positions[:, None, None, :] - world_pos
     to_cam = to_cam / torch.clamp(
         torch.linalg.vector_norm(to_cam, dim=-1, keepdim=True), min=1e-20)
     angle = (to_cam * normal_map).sum(dim=-1)
     strong = strong * angle ** 2
     return torch.where(outside_c, 0.0, strong)
+
+
+_QUALITY = native.Kernel("quality", [native.P] * 5 + [native.I] * 3)
+
+
+def quality_cuda(depth_b: torch.Tensor, normal_map: torch.Tensor, world_pos: torch.Tensor,
+                 camera_positions: torch.Tensor) -> torch.Tensor:
+    """Kernel 10 (``csrc/quality.cu``): ``quality_plain``'s output, bit for
+    bit, in one launch over [K, H, W]."""
+    kk, h, w, _ = depth_b.shape
+    dev = depth_b.device
+    native.check(depth_b, "depth_b", torch.float32, (kk, h, w, 2), dev)
+    native.check(normal_map, "normal_map", torch.float32, (kk, h, w, 3), dev)
+    native.check(world_pos, "world_pos", torch.float32, (kk, h, w, 3), dev)
+    native.check(camera_positions, "camera_positions", torch.float32, (kk, 3), dev)
+    out = torch.empty((kk, h, w), dtype=torch.float32, device=dev)
+    _QUALITY(depth_b.data_ptr(), normal_map.data_ptr(), world_pos.data_ptr(),
+             camera_positions.data_ptr(), out.data_ptr(), kk, h, w)
+    return out
+
+
+def quality(depth_b: torch.Tensor, normal_map: torch.Tensor, rig, warp) -> torch.Tensor:
+    """pre_quality.fs, the per-pixel fusion weight f32[K, H, W]: kernel 10
+    for CUDA tensors, ``quality_plain`` for CPU tensors. The world position
+    at d comes from ``warp`` (None: the gather tier's exact taps)."""
+    dn = depth_b[..., 0]
+    if warp is not None:
+        world_pos = warp.xyz(dn)
+    else:
+        _, h, w = dn.shape
+        world_pos = _sample_cv_per_pixel(rig.cv_xyz, dn, pixel_texcoords(h, w, dn.device))
+    if not native.is_cuda(depth_b):
+        return quality_plain(depth_b, normal_map, world_pos, rig.camera_positions)
+    return quality_cuda(depth_b, normal_map, world_pos, rig.camera_positions)
 
 
 class ProcessedFrames(NamedTuple):

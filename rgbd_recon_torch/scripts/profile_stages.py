@@ -6,7 +6,9 @@ frames on the card), with CUDA events: ``PROF_ITERS`` calls cycling over
 the inputs are captured in one CUDA graph and replayed (the device's time
 alone, ms a call) where the call is capture-safe, and run eagerly where it
 syncs with the host (the staged frame's host slab flags and the staged
-step itself). Then the whole frame, staged and fused.
+step itself). Then the whole frame, staged and fused. Color is a Kinect
+v2 stream's 1280x1080 8-bit RGB, as the wire delivers it (the scene's
+color resampled by nearest pixel).
 
     python -m rgbd_recon_torch.scripts.profile_stages
     PROF_TSDF=256 PROF_SENSORS=4 PROF_RENDER=1280x720 PROF_ITERS=10   # the defaults
@@ -21,6 +23,7 @@ import torch
 
 from ..calibration import synthetic
 from ..ops import bricks as brick_ops
+from ..ops import colors
 from ..ops import inpaint
 from ..ops import preprocess as pp
 from ..ops import raymarch as rm
@@ -29,6 +32,9 @@ from ..ops import tsdf_affine
 from ..ops.tsdf_fast import BRICK
 from ..runtime.pipeline import FramePipeline, PipelineConfig
 from ..utils.math import Bbox
+
+
+COLOR_SIZE = (1280, 1080)   # a Kinect v2 color stream (width, height)
 
 
 def timeit(name: str, fn, args_list, iters: int, graph: bool = True):
@@ -72,18 +78,23 @@ def main() -> int:
     rig, cams = synthetic.synthetic_rig(num_sensors=k, bbox=bbox, fwd_res=(128, 256, 128),
                                         inv_res=(128, 128, 128), width=512, height=424)
     depth, color = synthetic.render_frames(cams, synthetic.SphereScene.default(bbox))
+    cw, ch = COLOR_SIZE
+    iy = np.arange(ch) * color.shape[1] // ch
+    ix = np.arange(cw) * color.shape[2] // cw
+    color = color[:, iy][:, :, ix]
     pipe = FramePipeline(rig, PipelineConfig(
         render_width=rw, render_height=rh, tsdf_res=(tsdf_n,) * 3,
         voxel_size=float(np.max(bbox.size) / tsdf_n), brick_size=0.1), device=dev)
     mv, proj = pipe.default_camera()
     rng = np.random.default_rng(0)
     host = [(depth + rng.uniform(0, 2e-3, depth.shape).astype(np.float32),
-             np.clip(color + rng.uniform(0, 1e-2, color.shape).astype(np.float32), 0, 1))
-            for _ in range(4)]
+             np.round(np.clip(color + rng.uniform(0, 1e-2, color.shape), 0, 1) * 255)
+             .astype(np.uint8)) for _ in range(4)]
     staged = [pipe._sensor_inputs(d, c) for d, c in host]     # the session bakes too
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"== config: {pipe.tsdf_cfg.res}, {k} sensors, {rw}x{rh}, integrator "
+    print(f"== config: {pipe.tsdf_cfg.res}, {k} sensors, color {cw}x{ch} u8, {rw}x{rh}, "
+          f"integrator "
           f"{'dense emit' if pipe._dense_emit else 'block-major' if pipe.affine is not None else 'table'}"
           f"; {card.stdout.strip()}")
 
@@ -91,8 +102,12 @@ def main() -> int:
     rig_d, cfg_p, warp = pipe._drig, pipe.pre_cfg, pipe._warp
     timeit("morph_dilate", pp.morph_dilate, [(d,) for d, _ in staged], iters)
     cols = [c.to(torch.float32) / 255.0 if c.dtype == torch.uint8 else c for _, c in staged]
-    depth2, lab, _ = timeit("bilateral_lab", lambda d, c: pp.bilateral_lab(
+    depth2, lab, reg = timeit("bilateral_lab", lambda d, c: pp.bilateral_lab(
         d, c, rig_d, cfg_p, warp), list(zip([d for d, _ in staged], cols)), iters)
+    timeit("bilateral_lab, no filter", lambda d, c: pp.bilateral_lab(
+        d, c, rig_d, cfg_p._replace(filter_textures=False), warp),
+        list(zip([d for d, _ in staged], cols)), iters)
+    timeit("rgb_to_lab", colors.rgb_to_lab, [(reg,)], iters)
     depth_b, _ = timeit("boundary", lambda d2, lb: pp.boundary(d2, lb, cfg_p),
                         [(depth2, lab)], iters)
     nrm, world, world_valid = timeit("normals", lambda db: pp.normals(db, rig_d, warp),
@@ -133,11 +148,12 @@ def main() -> int:
                          ("device flags", [rmf.slab_occupancy_device(p.mask16, axis, n_slices)
                                            for p in pres])):
         args = [(v, c, o) for (v, c), o in zip(vols, flags)]
+        graph = label == "device flags"     # the kernel copies host flags to the card
         timeit(f"sweep ({label})", lambda v, c, o: rmf.sweep(
-            v, c, cam, bbox, lim, axis, flip, scfg, o, pipe._dense_emit), args, iters)
+            v, c, cam, bbox, lim, axis, flip, scfg, o, pipe._dense_emit), args, iters, graph)
         out = timeit(f"render_fast ({label})", lambda v, c, o: rmf.render_fast(
             v, c, cam, bbox, lim, axis, flip, rm.RenderParams(), scfg, o, pipe._dense_emit),
-            args, iters)
+            args, iters, graph)
 
     # --- holefill
     pyr = timeit("build_pyramid", lambda c, d: inpaint.build_pyramid(c, d, pipe.cfg.num_lods),

@@ -46,6 +46,7 @@ from ..utils.math import Bbox
 # device function name (csrc/*.cu) -> the port's kernel entry
 PORT_KERNELS = {
     "bilateral_accum_kernel": "bilateral_accum",
+    "quality_kernel": "quality",
     "mark_bricks_kernel": "mark_bricks",
     "warp_screen_kernel": "warp_screen",
     "integrate_quadratic_kernel": "integrate_dense/affine",

@@ -1004,3 +1004,132 @@ def test_k5_208_pair_counters_cuda(dev, k5_208):
     assert all(0 <= c <= p for c, p in zip(culled, pairs)) and len(culled) == 3
     swept = counts["render.slices_swept"]
     assert all(0 < v <= swept[f] for f, v in counts["render.slices_occupied"].items())
+
+
+# -- kernel 10: the quality pass (pre_quality.fs) ------------------------------
+
+def _quality_case(case, rng):
+    """(depth_b [K, H, W, 2], normals, world [K, H, W, 3], camera positions
+    [K, 3]) on the CPU for one case; the depth channel is a smooth surface
+    over (0, 1) with noise, steps the range window rejects and a quarter
+    of the pixels outside (0 and 1 exactly, -1, 1.2)."""
+    kk, h, w = {"bench": (4, 424, 512), "k5": (5, 424, 512), "ragged": (1, 37, 53),
+                "all_outside": (2, 61, 97), "edges": (2, 37, 53)}[case]
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    dn = np.stack([0.25 + 0.3 * xx + 0.1 * np.sin(7 * yy + k) + 0.004 * rng.random((h, w))
+                   for k in range(kk)])
+    dn[:, h // 3:, w // 2:] += 0.2                  # a depth step
+    dn[rng.random(dn.shape) < 0.25] = rng.choice([0.0, 1.0, -1.0, 1.2], 1)[0]
+    dn = dn.astype(np.float32)
+    if case == "all_outside":
+        dn = rng.choice(np.array([0.0, 1.0, -1.0, 1.5, -0.1], np.float32), dn.shape)
+    elif case == "edges":
+        # every pixel of the four edges inside, each corner a different depth
+        dn[:, [0, -1], :] = 0.41
+        dn[:, :, [0, -1]] = 0.43
+        dn[0, 0, 0], dn[0, 0, -1], dn[0, -1, 0], dn[0, -1, -1] = 0.2, 0.9, 0.55, 0.7
+        # exact 0 and 1 among the taps of an inside pixel
+        dn[1, 10, 9], dn[1, 10, 11], dn[1, 10, 10] = 0.0, 1.0, 0.6
+        # a tap at exactly the range window, dist == 0.35 * d in float32
+        c, s = _range_edge_pair(rng)
+        dn[1, 20, 20], dn[1, 20, 23] = c, s
+        # drm == 0: the smallest positive depth, one neighbour equal to it
+        tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+        assert np.float32(0.35) * tiny == 0
+        dn[1, 30, 40], dn[1, 30, 41] = tiny, tiny
+    depth_b = np.stack([dn, rng.random(dn.shape, dtype=np.float32)], -1)
+    n = rng.standard_normal((kk, h, w, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    world = rng.uniform(-1, 2, (kk, h, w, 3))
+    cam = rng.uniform(-3, 3, (kk, 3))
+    if case == "edges":
+        world[0, 5, 5] = cam[0]                     # to_cam 0: the norm's clamp
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32))
+            for a in (depth_b, n, world, cam)]
+
+
+def _range_edge_pair(rng):
+    """(d, s) in (0, 1), float32, with |s - d| == float32(0.35) * d exactly."""
+    for _ in range(100_000):
+        c = np.float32(rng.uniform(0.1, 0.7))
+        drm = np.float32(0.35) * c
+        s = c + drm
+        if abs(s - c) == drm and s < 1:
+            return c, s
+    raise AssertionError("no float32 pair at the range window's edge")
+
+
+@pytest.mark.parametrize("case", ["bench", "k5", "ragged", "all_outside", "edges"])
+def test_quality_cuda(dev, case):
+    """Kernel 10 equals quality_plain on the card bit for bit, in one launch:
+    at the bench shape (K = 4, 424 x 512), at K = 5, at K = 1 on a ragged
+    37 x 53 frame smaller than two tiles, with every pixel outside, and on
+    the edge cases (depths of exactly 0 and 1, a tap at exactly the range
+    window, a zero window, the image's edges and corners, a zero distance
+    to the camera)."""
+    rng = np.random.default_rng(19)
+    depth_b, n, world, cam = (t.to(dev) for t in _quality_case(case, rng))
+    before = native.KERNELS["quality"].launches
+    got = pp.quality_cuda(depth_b, n, world, cam)
+    assert native.KERNELS["quality"].launches == before + 1
+    want = pp.quality_plain(depth_b, n, world, cam)
+    assert got.shape == want.shape == depth_b.shape[:3]
+    bad = (got.view(torch.int32) != want.view(torch.int32))
+    assert not bool(bad.any()), (int(bad.sum()), got[bad][:5], want[bad][:5])
+    inside = (depth_b[..., 0] > 0) & (depth_b[..., 0] < 1)
+    assert bool((got[~inside] == 0).all())
+    if case == "all_outside":
+        assert not bool(inside.any())
+    else:
+        assert bool((got[inside] > 0).any())
+
+
+@pytest.fixture(scope="module")
+def k4_256():
+    """The rig, two frames (four sensors, depth 512x424, color 1280x1080 u8)
+    and the camera of the benchmark cell ``k4-256.static``, from
+    ``recon_bench``'s generator on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from recon_bench import discover, harness, schedule
+
+    cell = discover.cell("k4-256.static")
+    rig, depth, color = harness.make_inputs(cell.config, cell.traffic, K5_SEED, "cuda")
+    mv, proj = schedule.make(cell.config, cell.traffic, K5_SEED).cameras[0]
+    return cell, rig, depth[:2], color[:2], mv, proj
+
+
+def test_k4_256_fused_quality_cuda(dev, k4_256, monkeypatch):
+    """At ``k4-256.static``'s shape the fused frame equals the staged frame
+    bit for bit on two frames, each replay launches kernel 10 once, and
+    the staged frames' quality inputs give kernel 10 the twin's bits."""
+    from recon_bench import harness
+
+    cell, rig, depth, color, mv, proj = k4_256
+    pipe = harness.pipeline(cell.config, rig, dev)
+    pipe.cfg = pipe.cfg._replace(fused=False)
+    calls = []
+    kernel = pp.quality_cuda
+
+    def spy(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    monkeypatch.setattr(pp, "quality_cuda", spy)
+    staged = [pipe.step(depth[i], color[i], mv, proj) for i in range(2)]
+    monkeypatch.setattr(pp, "quality_cuda", kernel)
+    assert len(calls) == 2 and calls[0][0].shape == (4, 424, 512, 2)
+    for args in calls:
+        assert torch.equal(kernel(*args).view(torch.int32),
+                           pp.quality_plain(*args).view(torch.int32))
+    pipe.cfg = pipe.cfg._replace(fused=True)
+    pipe.warmup(depth[0], color[0], mv, proj)          # the capture
+    for k in native.KERNELS.values():
+        k.launches = 0
+    for i in (0, 1, 0):
+        out = pipe.step(depth[i], color[i], mv, proj)
+        torch.cuda.synchronize()
+        _assert_same(out, staged[i], f"frame {i}")
+    launches = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+    assert launches["quality"] == 3 and launches["bilateral_accum"] == 3, launches
+    assert len(pipe._graphs.keys()) == 1

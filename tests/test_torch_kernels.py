@@ -5,6 +5,8 @@ kernels run in interpret mode, as their own tests run them. The CUDA
 kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py (marker ``cuda``) and by chip_smoke.py.
 """
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,11 +18,21 @@ from rgbd_recon_tpu.ops.preprocess_pallas import bilateral_accum_pallas
 from rgbd_recon_tpu.ops.warp_pallas import warp_screen_pallas
 from rgbd_recon_tpu.utils.math import Bbox as JBbox
 
-from rgbd_recon_torch.ops import bricks
+from rgbd_recon_torch.ops import bricks, preprocess as pp
 from rgbd_recon_torch.ops.raymarch_fast import _taps
 from rgbd_recon_torch.ops.preprocess import bilateral_accum
-from rgbd_recon_torch.ops.warp import warp_screen
+from rgbd_recon_torch.ops.warp import PixelWarp, warp_screen
 from rgbd_recon_torch.utils.math import Bbox
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread: beside the other test workers on the same
+    cores, a pool of 8 spins and a frame's small ops run 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _bilateral_inputs(rng, kk=2, h=48, w=96):
@@ -118,6 +130,55 @@ def test_wrappers_reject_other_devices():
     d = torch.zeros((1, 8, 8), device="meta")
     with pytest.raises(ValueError):
         bilateral_accum(d, torch.zeros((1, 2), device="meta"))
+    rig = types.SimpleNamespace(camera_positions=torch.zeros((1, 3), device="meta"))
+    warp = types.SimpleNamespace(xyz=lambda dn: torch.zeros(dn.shape + (3,), device="meta"))
+    with pytest.raises(ValueError):
+        pp.quality(torch.zeros((1, 8, 8, 2), device="meta"),
+                   torch.zeros((1, 8, 8, 3), device="meta"), rig, warp)
+
+
+def _quality_inputs(rng, kk=2, h=37, w=53):
+    """depth_b f32[K, H, W, 2] with a smooth depth over (0, 1), a quarter of
+    the pixels outside (0 and 1 exactly, -1, 1.2) and a step the range
+    window rejects; unit normals; camera positions f32[K, 3]."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    dn = np.stack([0.3 + 0.2 * xx + 0.1 * np.sin(5 * yy) + 0.01 * rng.random((h, w))
+                   for _ in range(kk)])
+    dn[:, :, w // 2:] += 0.3                      # a depth step
+    dn[rng.random(dn.shape) < 0.25] = rng.choice([0.0, 1.0, -1.0, 1.2])
+    depth_b = np.stack([dn, rng.random(dn.shape)], -1).astype(np.float32)
+    n = rng.standard_normal((kk, h, w, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    cam = rng.uniform(-3, 3, (kk, 3)).astype(np.float32)
+    return (torch.from_numpy(depth_b), torch.from_numpy(n.astype(np.float32)),
+            torch.from_numpy(cam))
+
+
+@pytest.mark.parametrize("tier", ["affine", "gather"])
+def test_quality_cpu_is_plain_twin(rng, tier):
+    """On CPU tensors ``quality`` is ``quality_plain`` (kernel 10's oracle)
+    on the world position its warp tier gives, bit for bit: the affine
+    PixelWarp's xyz(d), or the gather tier's exact taps of cv_xyz. Zero
+    outside (0, 1), positive on some pixels inside."""
+    depth_b, normals, cam = _quality_inputs(rng)
+    kk, h, w, _ = depth_b.shape
+    dn = depth_b[..., 0]
+    if tier == "affine":
+        f = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32))  # noqa: E731
+        warp = PixelWarp(f(kk, h, w, 3), f(kk, h, w, 3), f(kk, h, w, 2), f(kk, h, w, 2),
+                         0.01, 0.99, 0.0, 0.0)
+        rig = types.SimpleNamespace(camera_positions=cam, cv_xyz=None)
+        world = warp.xyz(dn)
+    else:
+        warp = None
+        cv = torch.from_numpy(rng.uniform(-1, 2, (kk, 8, 6, 5, 3)).astype(np.float32))
+        rig = types.SimpleNamespace(camera_positions=cam, cv_xyz=cv)
+        world = pp._sample_cv_per_pixel(cv, dn, pp.pixel_texcoords(h, w, dn.device))
+    got = pp.quality(depth_b, normals, rig, warp)
+    assert got.shape == (kk, h, w) and got.dtype == torch.float32
+    assert torch.equal(got, pp.quality_plain(depth_b, normals, world, cam))
+    outside = (dn <= 0) | (dn >= 1)
+    assert bool((got[outside] == 0).all()) and bool((got[~outside] > 0).any())
 
 
 @pytest.mark.parametrize("max_bricks", [0, 1, 37, 64, 90])
