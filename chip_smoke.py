@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the checks below
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one pinhole frame
     python3 chip_smoke.py --ladder   # phases 1, 2 and 15 alone
     python3 chip_smoke.py --sweep    # phases 1, 2 and 16 alone
 
@@ -116,9 +115,8 @@ a result line):
               by every replay as often as by a staged frame. At pinhole 256^3
               also: the frame medians over 20 step_timed frames staged, fused,
               staged (host clock, synced; the stage means, fused the whole
-              replay under 3recon), ``rgbd_recon_torch.scripts.trace_fused`` over 3
-              fused frames (kernels 1-4 named in the replays' trace, every
-              replay lined up with the eager frame; the device busy share),
+              replay under 3recon), kernels 1-4 and 10 in the launch tally
+              that the capture recorded (``FrameGraphs``' ``_Graph.launches``),
               the memory reserved staged, with 1 variant and with 6, the orbit
               (``warm_variants_async`` captures the other 5 variants on its
               thread; each variant's frame bit for bit the staged frame at its
@@ -414,30 +412,6 @@ def _time_ms(fn, reps: int, graph: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profile_frame(pipe, frame, mv, proj, card: str) -> None:
-    """Device time by kernel over one frame and the device's busy share
-    (sum of kernel times over the frame's wall time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.step(*frame, mv, proj)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side rows only (kernels, memcpy, memset): the CPU-side aten
-    # rows carry the same device time again
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    print(f"profile: frame {wall_us / 1e3:.3f} ms wall under the profiler, "
-          f"device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}), "
-          f"{sum(e.count for e in rows)} device ops ({card})")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-
-
 def _bound(nbytes: float, ops: float):
     """(least ms for the work, what bounds it) on an H100 SXM."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -502,7 +476,7 @@ def _app_phase(rig, frames, card: str, work: str):
     from rgbd_recon_torch import native
     from rgbd_recon_torch.io.stream import StreamReader
     from rgbd_recon_torch.ops.wire import make_wire_decoder
-    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.runtime import integrator as integ_mod, pipeline as pl
     from rgbd_recon_torch.utils.math import perspective
     from rgbd_recon_torch.utils.navigator import CameraNavigator
     from rgbd_recon_torch.utils.png import read_png
@@ -578,11 +552,11 @@ def _app_phase(rig, frames, card: str, work: str):
     res = pipe.tsdf_cfg.res
     print(f"app: main() exit {rc} after {app._frames_done} frames, {wall:.1f} s (host "
           f"clock, scene load and session bakes included); volume res {res} from "
-          f"voxel_size {pipe.cfg.voxel_size} ({'dense emit' if pipe._dense_emit else 'block-major'} "
+          f"voxel_size {pipe.cfg.voxel_size} ({pipe.integrator.tier} "
           f"integrator), occupied-brick capacity {pipe.max_bricks}")
     if rc != 0 or app._frames_done != APP_RUN:
         raise RuntimeError(f"the app ran {app._frames_done} frames (exit {rc})")
-    if res != (208, 224, 208) or pipe._dense_emit or pipe.affine is None:
+    if res != (208, 224, 208) or pipe.integrator.tier != integ_mod.BLOCK_MAJOR:
         raise RuntimeError(f"the app did not take the block-major integrator at {res}")
     if app._wire_decode is None:
         raise RuntimeError("the app decoded the compressed streams on the host")
@@ -1096,17 +1070,16 @@ def _fused_phase(label: str, pipe, frames, mv, proj, staged_outs, need, card: st
     log(f"fused {label}: {FUSED_FRAMES} frames bit for bit the staged frames ({card})")
 
 
-def _fused_pinhole(pipe, frames, mv, proj, card: str, work: str, reserved_0: int) -> None:
+def _fused_pinhole(pipe, frames, mv, proj, card: str, reserved_0: int) -> None:
     """Phase 12's pinhole extras on phase 3's pipeline, fused and captured:
-    the medians over FUSED_BENCH frames fused and staged, the profiler
-    trace of fused frames (kernels 1-4 named in it, its busy share), the
-    memory reserved with 1 and 6 variants, and the orbit of the 6 variants
-    through warm_variants_async, each bit for bit the staged frame.
+    the medians over FUSED_BENCH frames fused and staged, kernels 1-4 and
+    10 in the launch tally its capture recorded, the memory reserved with 1
+    and 6 variants, and the orbit of the 6 variants through
+    warm_variants_async, each bit for bit the staged frame.
     ``reserved_0``: the memory reserved before the first capture."""
     import numpy as np
     import torch
     from rgbd_recon_torch.runtime import pipeline as pl
-    from rgbd_recon_torch.scripts import trace_fused
 
     def median_ms(fused: bool) -> float:
         """The frame median of FUSED_BENCH step_timed frames (host clock,
@@ -1137,19 +1110,14 @@ def _fused_pinhole(pipe, frames, mv, proj, card: str, work: str, reserved_0: int
           f"{staged2:.3f} ms (before / after): {staged / fused:.2f}x / {staged2 / fused:.2f}x "
           f"({card})")
     pipe.cfg = pipe.cfg._replace(fused=True)
-    tdir = os.path.join(work, "trace_fused")
-    trace_fused.record(pipe, (*frames[0], mv, proj), 3, tdir)
-    summary = trace_fused.parse(tdir, log=lambda s: print(f"  {s}"))
-    names = " ".join(summary["kernels"])
-    need = ("integrate_quadratic_kernel", "warp_screen_kernel", "bilateral_accum_kernel",
-            "quality_kernel", "mark_bricks_kernel")
-    missing = [k for k in need if k not in names]
-    if missing or summary["replays"] != 3:
-        raise RuntimeError(f"fused trace: kernels {missing} not in the replays, or "
-                           f"{summary['replays']} replays traced, not 3")
-    print(f"fused pinhole 256^3: device busy {summary['busy_ms']:.3f} ms of a "
-          f"{summary['wall_ms']:.3f} ms fused frame ({summary['busy_share']:.1%}; profiled, "
-          f"host clock, synced; kernels 1-4 named in the replays' trace) ({card})")
+    key = pipe._axis(mv)[1]
+    tally = pipe._graphs._graphs[key].launches
+    need = ("integrate_dense", "warp_screen", "bilateral_accum", "quality", "mark_bricks")
+    missing = [k for k in need if not tally.get(k)]
+    if missing:
+        raise RuntimeError(f"fused graph {key}: kernels {missing} not in its launches {tally}")
+    print(f"fused pinhole 256^3: the graph of {key} launches {tally} a replay "
+          f"(kernels 1-4 and 10 recorded at its capture) ({card})")
 
     # the orbit: the other five variants captured on warm_variants_async's thread
     logs = []
@@ -1317,7 +1285,7 @@ def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt)
     from rgbd_recon_torch.parallel import fast_sharded as fs
     from rgbd_recon_torch.parallel.replay import ReplayDriver
     from rgbd_recon_torch.parallel.sharding import make_mesh, sharded_step
-    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.runtime import integrator as integ_mod, pipeline as pl
     from rgbd_recon_torch.scripts import calib_inverter
     from rgbd_recon_torch.utils.bench_golden import bench_config
     from rgbd_recon_torch.utils.math import Bbox
@@ -1434,7 +1402,7 @@ def _sharded_phase(rig, bbox, frames, card: str, work: str, ks: str, paths, fmt)
     s = fs.sweep_slabs(bpipe, 3, *frames[0], mv, proj)
     got = fs.finish(bpipe, *s[:-1])
     bc = counts()
-    if bpipe._dense_emit or "integrate_affine" not in bc:
+    if bpipe.integrator.tier != integ_mod.BLOCK_MAJOR or "integrate_affine" not in bc:
         raise RuntimeError(f"sharded (b) 240^3: kernel 6 did not run: {bc}")
     txt = _slabs_vs_world("sharded (b) 240^3", bpipe, 3, s, got, world[240],
                           (*frames[0], mv, proj))
@@ -1661,7 +1629,7 @@ def _sweep_phase(rig, bbox, frames, card: str, report, launches) -> None:
     for n in (256, 512):
         pipe = pl.FramePipeline(rig, bench_config(bbox, n), device=dev)
         mv, proj = pipe.default_camera()
-        recs = {name: Recorder(rmf, name) for name in ("sweep", "slab_occupancy")}
+        recs = {name: Recorder(rmf, name) for name in ("sweep", "slab_occupancy_device")}
         try:
             pipe.step(*frames[0], mv, proj)
             torch.cuda.synchronize()
@@ -1669,7 +1637,7 @@ def _sweep_phase(rig, bbox, frames, card: str, report, launches) -> None:
             for r in recs.values():
                 r.restore()
         (vol, cvol, cam, box, limit, axis0, flip0, scfg, _, zmajor), _ = recs["sweep"].calls[0]
-        (mask16, _, _), _ = recs["slab_occupancy"].calls[0]
+        (mask16, _, _), _ = recs["slab_occupancy_device"].calls[0]
         n_occ = int(mask16.sum())
         with open(os.path.join(HERE, "recon_bench", "configs", f"k4-{n}.json")) as f:
             nbytes, ops = roofline.sweep_work(json.load(f), n_occ)
@@ -1732,7 +1700,7 @@ def _ladder_phase(rig, frames, card: str, check_integrator, integrator_work,
     from rgbd_recon_torch.calibration.synthetic import bench_inputs
     from rgbd_recon_torch.ops import preprocess as pp, raymarch_fast as rmf, tsdf_dense
     from rgbd_recon_torch.ops.tsdf_fast import occupied_bricks, pack_frames, pack_planes
-    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.runtime import integrator as integ_mod, pipeline as pl
     from rgbd_recon_torch.scripts import golden_parity
     from rgbd_recon_torch.utils import bench_golden as bg
     from rgbd_recon_torch.utils.metrics import render_parity_passes
@@ -1763,7 +1731,7 @@ def _ladder_phase(rig, frames, card: str, check_integrator, integrator_work,
         pipe.warmup(*kframes[0], mv, proj)
         print(f"{label}: pipeline, session bakes and warm-up: {time.perf_counter() - t0:.1f} s")
         # one staged frame: kernels 1-4, K registration warps and one screen
-        rec = Recorder(pl, "integrate_dense")
+        rec = Recorder(integ_mod, "integrate_dense")
         split = [CallCounter(pp, "warp_screen", lambda a, kw: "registration"),
                  CallCounter(rmf, "warp_screen", lambda a, kw: "screen")]
         for k in native.KERNELS.values():
@@ -1885,7 +1853,7 @@ def _ladder_phase(rig, frames, card: str, check_integrator, integrator_work,
             del pre
             views = golden_parity.renderer_parity(
                 vol, cvol, bbox, float(pipe.tsdf_cfg.limit), proj, 1280, 720,
-                pipe._sweep_res(), pipe._dense_emit, log=lambda s: None)
+                pipe._sweep_res(), pipe.integrator.zmajor, log=lambda s: None)
             del vol, cvol
             print(f"{label}: golden parity, oracle marcher vs sweep on the production volume "
                   f"(bf16, z-major), 1280x720 ({card}):")
@@ -1933,7 +1901,7 @@ def main() -> int:
     from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse, warp as warp_ops
     from rgbd_recon_torch.ops.tsdf_fast import (occupied_bricks, occupied_list, pack_frames,
                                                 pack_planes)
-    from rgbd_recon_torch.runtime import pipeline as pl
+    from rgbd_recon_torch.runtime import integrator as integ_mod, pipeline as pl
     from rgbd_recon_torch.utils.bench_golden import bench_config
 
     t_start = time.perf_counter()
@@ -2112,7 +2080,7 @@ def main() -> int:
         "mark_bricks": (bricks, "mark_bricks"),
         "warp_screen_registration": (pp, "warp_screen"),
         "warp_screen_screen": (rmf, "warp_screen"),
-        "integrate_dense": (pl, "integrate_dense"),
+        "integrate_dense": (integ_mod, "integrate_dense"),
     })
 
     # bilateral_accum: the 13x13 accumulators of the 4 x 424 x 512 frame
@@ -2232,19 +2200,16 @@ def main() -> int:
                  PINHOLE_FRAMES, cfg.tsdf_res, split={"warp_screen": [
                      (pp, "warp_screen", lambda a, kw: ws_entry["registration"]),
                      (rmf, "warp_screen", lambda a, kw: ws_entry["screen"])]})
-    if "--profile" in sys.argv[1:]:
-        _profile_frame(pipe, frames[1], mv, proj, card)
     # phase 11 (d) renders this path's production volume of the first frame
     pre = pipe._pre(*pipe._sensor_inputs(*frames[0]))
     golden = dict(zip(("vol", "cvol"), pipe._integrate(pre)), sweep_res=pipe._sweep_res(),
-                  zmajor=pipe._dense_emit, limit=float(pipe.tsdf_cfg.limit))
+                  zmajor=pipe.integrator.zmajor, limit=float(pipe.tsdf_cfg.limit))
     del pre
     # phase 12 on this path, then its pinhole extras
     reserved_0 = torch.cuda.memory_reserved()
     _fused_phase("pinhole 256^3", pipe, frames, mv, proj, outs,
                  PATH_KERNELS + ("integrate_dense",), card)
-    with tempfile.TemporaryDirectory(prefix="rgbd_trace_") as tdir:
-        _fused_pinhole(pipe, frames, mv, proj, card, tdir, reserved_0)
+    _fused_pinhole(pipe, frames, mv, proj, card, reserved_0)
     del pipe, recs, iargs, kargs, packed, slots, fr, aff, m16, woff, cls, outs
 
     # -- 16. the sweep kernel at 256^3 and 512^3 (on this phase's rig) -------
@@ -2274,7 +2239,7 @@ def main() -> int:
           f"(host clock, synchronized)")
     if not any("piecewise warp (48 knots) residual" in s and "gather" not in s for s in logs):
         raise RuntimeError(f"the distorted rig did not take the piecewise tier: {logs}")
-    if not isinstance(pipe._warp, warp_ops.PiecewiseWarp) or not pipe._dense_emit:
+    if not isinstance(pipe._warp, warp_ops.PiecewiseWarp) or not pipe.integrator.zmajor:
         raise RuntimeError("the distorted rig is not on the piecewise + dense-emit path")
 
     # piecewise_eval at each distinct call of the frame: xyz (M=1, C=3:
@@ -2323,8 +2288,8 @@ def main() -> int:
     bcfg = bench_config(bbox, 240)
     pipe = pl.FramePipeline(rig, bcfg, device=dev, log=lambda s: print(f"  {s}"))
     recs = warm_up("block-major", pipe, frames[0], mv, proj,
-                   {"integrate_affine": (pl, "integrate_affine")})
-    if pipe._dense_emit or pipe.affine is None:
+                   {"integrate_affine": (integ_mod, "integrate_affine")})
+    if pipe.integrator.tier != integ_mod.BLOCK_MAJOR:
         raise RuntimeError("the 240^3 volume did not take the block-major integrator")
     (fr, aff, tcfg, m16, maxb, woff, wy), kw = recs["integrate_affine"].calls[0]
     win = {"wx": kw["wx"], "xstride": kw["xstride"]}     # the pipeline's: the whole frame
@@ -2438,10 +2403,10 @@ def main() -> int:
     pipe = pl.FramePipeline(rig, tcfg_p, device=dev, log=lambda s: print(f"  {s}"))
     torch.cuda.synchronize()
     print(f"table: warp-table bake {time.perf_counter() - t0:.1f} s "
-          f"({pipe.tables.pos_blocked.numel() * 4 / 1e6:.0f} MB)")
+          f"({pipe.integrator.tables.pos_blocked.numel() * 4 / 1e6:.0f} MB)")
     recs = warm_up("table", pipe, frames[0], mv, proj,
-                   {"integrate_sparse": (pl, "integrate_sparse")})
-    if pipe.affine is not None:
+                   {"integrate_sparse": (integ_mod, "integrate_sparse")})
+    if pipe.integrator.tier != integ_mod.WARP_TABLE:
         raise RuntimeError("use_affine=False did not take the table integrator")
     (fr, tables, tcfg, m16, maxb, woff), _ = recs["integrate_sparse"].calls[0]
     idx, _, count = occupied_list(m16, maxb)

@@ -24,7 +24,7 @@
 // warp. No full histogram in shared memory: zeroing and flushing every bin
 // in every block, or in every thread-block cluster over its distributed
 // shared memory, and the cluster barriers cost more than the contention
-// they remove (timed in tools/piecewise_steps.py). The same kernel takes
+// they remove (timed by a steps tool, in git at 90d5ed3). The same kernel takes
 // any number of bins. The counts are zeroed by a memset node before the
 // kernel (every block adds to any bin). The brick-center arithmetic uses
 // explicitly rounded intrinsics, so no multiply-add is fused and the ids
@@ -34,7 +34,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int kSlots = 2;            // points a thread a pass (1, 2, 4 timed: tools/piecewise_steps.py)
+constexpr int kSlots = 2;            // points a thread a pass (1, 2, 4 timed; git 90d5ed3)
 constexpr int kBlocksPerSM = 8;      // resident at <= 32 registers: one pass over a frame
 constexpr int kCache = 64;           // bins a block caches in shared memory (16, 64, 256 timed)
 constexpr unsigned kNone = 0xffffffffu;   // no bin (invalid point, no neighbour)

@@ -13,7 +13,7 @@
 // it must write 33 MB and read 7.4 MB of coordinates and the 9.4 MB source
 // (15 us at 3.35 TB/s). On an H100 SXM at 700 W the first design took
 // 91 us, over twice F.grid_sample's 40 us on the same image. Timed one
-// change at a time (rgbd_recon_torch/tools/warp_screen_steps.py), its
+// change at a time (a steps tool, in git at 90d5ed3), its
 // 9-float (36-byte) pixels stored as scalars, so each warp-wide store
 // touched ~9x the sectors of a planar layout, cost the most, then its
 // loop over a runtime channel count; its three integer divisions per

@@ -5,7 +5,7 @@ the dense emit cannot tile (mirrors ``rgbd_recon_tpu/ops/tsdf_persist.py``).
 ``integrate_affine_pallas``: the fusion of kernel 1 (ops/tsdf_dense.py)
 with every sensor FULL (no depth-band classes), by default the TPU
 kernel's fixed 64-col windows at stride 16 (``wx``, ``xstride``; the
-pipeline gives it the whole frame, see ``FramePipeline._session_bakes``),
+pipeline gives it the whole frame, see ``runtime.integrator.Integrator``),
 emitting f32 TSDF [Vz, Vy, Vx] and bf16
 color [Vz, Vy, Vx, 4] in voxel order with the clear values where no brick
 is occupied. With ``raw=True`` it returns what the TPU kernel itself

@@ -6,9 +6,8 @@
   bx), so a z-slab is the contiguous brick range [r nb/n, (r+1) nb/n) of
   the affine coefficients, the warp table and the window origins.
 * INTEGRATION is embarrassingly parallel: each rank fuses the occupied
-  bricks of its slab into a dense slab with the single-card integrator of
-  the pipeline's tier (kernel 1's dense emit, kernel 6, kernel 7, or kernel
-  7's window mode below the ``use_pallas`` gate), at capacity
+  bricks of its slab into a dense slab with the pipeline's integrator cut
+  to the slab's bricks (``Integrator.slab``), at capacity
   ``min(max_bricks, nb / n)``. As in JAX, no depth-band cull: the step
   equals the single-card step with ``brick_cull=False``.
 * The SWEEP decomposes along the camera's sweep axis. For an x- or
@@ -22,7 +21,7 @@
   ``sharding``; shading and colorfill run on the merged planes on every
   rank (unsplit, as there).
 
-The per-rank stages are functions of slab tensors (``integrate_local``,
+The per-rank stages are functions of slab tensors (``Integrator.slab``,
 ``reshard_chunks`` / ``reshard_join``, ``halo_send`` / ``window_of``,
 ``sweep_local``, ``pack_planes`` / ``merge_planes``): ``fast_sharded_step``
 wires them with collectives, ``sweep_slabs`` / ``run_slabs`` run every rank
@@ -37,11 +36,7 @@ import torch
 from ..ops import bricks as brick_ops
 from ..ops import raymarch as rm
 from ..ops import raymarch_fast as rmf
-from ..ops import tsdf_fast, tsdf_sparse
-from ..ops.tsdf import TsdfConfig
-from ..ops.tsdf_dense import integrate_dense
-from ..ops.tsdf_fast import BRICK, IntegrationTables
-from ..ops.tsdf_persist import integrate_affine
+from ..ops.tsdf_fast import BRICK
 from .sharding import (Mesh, all_gather, all_to_all, check_mesh, preprocess_sensors,
                        preprocess_sharded, split_range)
 
@@ -49,18 +44,8 @@ from .sharding import (Mesh, all_gather, all_to_all, check_mesh, preprocess_sens
 class SlabPlan(NamedTuple):
     """The z-slab decomposition of ``pipe``'s volume over n ranks."""
 
-    n: int
-    cfg_local: TsdfConfig   # one slab: (vx, vy, vz / n)
     nb_local: int           # bricks per slab
     max_bricks: int         # per-slab capacity
-
-
-class SlabBakes(NamedTuple):
-    """One rank's brick range of the integrator bakes (contiguous copies)."""
-
-    affine: object          # AffineTables or None
-    tables: IntegrationTables | None
-    win_off: torch.Tensor
 
 
 def slab_plan(pipe, n: int) -> SlabPlan:
@@ -72,8 +57,7 @@ def slab_plan(pipe, n: int) -> SlabPlan:
     if vz % (n * BRICK):
         raise ValueError(f"fast_sharded_step needs vz % (16 * n) == 0: {(vz, n)}")
     nb = (vx // BRICK) * (vy // BRICK) * (vz // BRICK)
-    return SlabPlan(n, TsdfConfig((vx, vy, vz // n), pipe.tsdf_cfg.limit), nb // n,
-                    min(pipe.max_bricks, nb // n))
+    return SlabPlan(nb // n, min(pipe.max_bricks, nb // n))
 
 
 def check_axis(pipe, n: int, axis: int) -> None:
@@ -83,18 +67,6 @@ def check_axis(pipe, n: int, axis: int) -> None:
         raise ValueError(f"sweep axis {axis} res {res} not divisible by mesh size {n}")
 
 
-def slab_bakes(pipe, plan: SlabPlan, rank: int) -> SlabBakes:
-    """Rank ``rank``'s brick range of the session bakes (after
-    ``pipe._session``)."""
-    lo, hi = rank * plan.nb_local, (rank + 1) * plan.nb_local
-    aff = pipe.affine
-    if aff is not None:
-        aff = aff._replace(coeffs=aff.coeffs[:, lo:hi].contiguous())
-    tables = (IntegrationTables(pipe.tables.pos_blocked[:, lo:hi].contiguous())
-              if pipe.tables is not None else None)
-    return SlabBakes(aff, tables, pipe._win_off[:, lo:hi].contiguous())
-
-
 def occupancy(pipe, frames):
     """Brick marking (kernel 4 on the card), the 16^3 block mask (no
     depth-band cull) and the occupied ratio, as every rank computes them."""
@@ -102,25 +74,6 @@ def occupancy(pipe, frames):
     mask = brick_ops.occupancy_mask(counts, pipe.cfg.min_voxels_per_brick)
     mask16 = brick_ops.block_occupancy(mask, pipe.brick_grid, pipe.tsdf_cfg.res, BRICK)
     return mask16, brick_ops.occupied_ratio(mask)
-
-
-def integrate_local(pipe, plan: SlabPlan, bakes: SlabBakes, frames, mask16: torch.Tensor,
-                    rank: int):
-    """Rank ``rank``'s slab: (TSDF [vz/n, Vy, Vx], color) by the
-    pipeline's integrator tier (the choice of JAX ``integrate_local``)."""
-    nbz = mask16.shape[0] // plan.n
-    m = mask16[rank * nbz:(rank + 1) * nbz]
-    cfg_l, mb = plan.cfg_local, plan.max_bricks
-    if bakes.affine is not None:
-        if pipe._dense_emit:
-            return integrate_dense(frames, bakes.affine, cfg_l, m, mb, bakes.win_off,
-                                   pipe._wy, pipe._wx, pipe._xstride)
-        return integrate_affine(frames, bakes.affine, cfg_l, m, mb, bakes.win_off, pipe._wy,
-                                wx=pipe._wx, xstride=pipe._xstride)
-    if pipe._use_pallas():
-        return tsdf_sparse.integrate_sparse(frames, bakes.tables, cfg_l, m, mb, bakes.win_off)
-    return tsdf_fast.integrate_sparse(frames, bakes.tables, cfg_l, m, mb,
-                                      pipe.cfg.sample_window, bakes.win_off)
 
 
 def _split_axes(axis: int, zmajor: bool) -> tuple[int, int]:
@@ -179,8 +132,8 @@ def sweep_local(pipe, vol_a: torch.Tensor, cvol_a: torch.Tensor, flags, cam,
     ns_l = pipe.tsdf_cfg.res[axis] // n
     occ = flags[rank * ns_l:(rank + 1) * ns_l] if flags is not None else None
     return rmf.sweep(vol_a, cvol_a, cam, pipe.bbox, float(pipe.tsdf_cfg.limit), axis, flip,
-                     rmf.SweepConfig(res=pipe._sweep_res()), occ, zmajor=pipe._dense_emit,
-                     window=window)
+                     rmf.SweepConfig(res=pipe._sweep_res()), occ,
+                     zmajor=pipe.integrator.zmajor, window=window)
 
 
 def pack_planes(res: rmf.SweepResult) -> torch.Tensor:
@@ -219,10 +172,6 @@ def finish(pipe, merged: rmf.SweepResult, cam, axis: int, flip: bool, tsdf, occu
                        occupied_bricks=n_occ)
 
 
-def _camera(pipe, mv: torch.Tensor, pr: torch.Tensor):
-    return rm.RenderCamera(mv, pr, pipe.cfg.render_width, pipe.cfg.render_height)
-
-
 def fast_sharded_step(pipe, mesh: Mesh):
     """The z-slab fast-path step of ``pipe`` on ``mesh`` (JAX
     ``fast_sharded_step``). Returns f(depth, color, modelview, proj) ->
@@ -234,23 +183,25 @@ def fast_sharded_step(pipe, mesh: Mesh):
     slab_plan(pipe, n)
     held = {}
 
-    def plan_and_bakes():
-        """The slab plan and this rank's bakes, remade when the pipeline's
-        volume or bakes change (a retune, a rebake, a new sensor size)."""
-        key = (pipe.tsdf_cfg.res, pipe.max_bricks)
-        src = (pipe.affine, pipe.tables, pipe._win_off)
-        if held.get("key") != key or any(a is not b for a, b in zip(held["src"], src)):
+    def plan_and_slab():
+        """The slab plan and this rank's integrator, remade with the volume,
+        capacity, integrator or windows (a retune, a rebake, a sensor size)."""
+        key, win = (pipe.tsdf_cfg, pipe.max_bricks), pipe.integrator.win_off
+        if held.get("key") != key or held["win"] is not win:
             plan = slab_plan(pipe, n)
-            held.update(key=key, src=src, plan=plan, bakes=slab_bakes(pipe, plan, rank))
-        return held["plan"], held["bakes"]
+            lo = rank * plan.nb_local
+            held.update(key=key, win=win, plan=plan,
+                        integ=pipe.integrator.slab(lo, lo + plan.nb_local))
+        return held["plan"], held["integ"]
 
     def step(depth_m, color, modelview, proj):
         depth, col, mv, pr, axis, flip = pipe._inputs(depth_m, color, modelview, proj)
         check_axis(pipe, n, axis)
         frames = preprocess_sharded(pipe, mesh, depth, col, pipe._drig)
         mask16, occupied = occupancy(pipe, frames)
-        vol_l, cvol_l = integrate_local(pipe, *plan_and_bakes(), frames, mask16, rank)
-        zmajor = pipe._dense_emit
+        plan, integ = plan_and_slab()
+        vol_l, cvol_l = integ.integrate(frames, mask16, plan.max_bricks)
+        zmajor = pipe.integrator.zmajor
         vol_a, cvol_a = vol_l, cvol_l
         if axis != 2:       # z-slabs -> axis-slabs
             pieces = reshard_chunks(vol_l, cvol_l, axis, n, zmajor)
@@ -259,7 +210,7 @@ def fast_sharded_step(pipe, mesh: Mesh):
                 all_to_all(mesh, [p[1] for p in pieces]))))
         halos = all_gather(mesh, halo_send(vol_a, cvol_a, axis, flip, zmajor))
         window = window_of(halos, rank, n, pipe.tsdf_cfg.res[axis], flip)
-        cam = _camera(pipe, mv, pr)
+        cam = rm.RenderCamera(mv, pr, pipe.cfg.render_width, pipe.cfg.render_height)
         res = sweep_local(pipe, vol_a, cvol_a, slab_flags(pipe, mask16, axis), cam, axis,
                           flip, window, rank, n)
         merged = merge_planes(all_gather(mesh, pack_planes(res)), flip, res.base_extent,
@@ -300,16 +251,16 @@ def sweep_slabs(pipe, n: int, depth_m, color, modelview, proj) -> SlabSweep:
     else:
         frames = preprocess_sensors(pipe, depth, col, pipe._drig, 0, k)
     mask16, occupied = occupancy(pipe, frames)
-    zmajor = pipe._dense_emit
-    slabs = [integrate_local(pipe, plan, slab_bakes(pipe, plan, r), frames, mask16, r)
-             for r in range(n)]
+    zmajor = pipe.integrator.zmajor
+    slabs = [pipe.integrator.slab(r * plan.nb_local, (r + 1) * plan.nb_local).integrate(
+        frames, mask16, plan.max_bricks) for r in range(n)]
     if axis != 2:
         pieces = [reshard_chunks(v, c, axis, n, zmajor) for v, c in slabs]
         owned = [reshard_join([pieces[i][j] for i in range(n)]) for j in range(n)]
     else:
         owned = slabs
     halos = [halo_send(v, c, axis, flip, zmajor) for v, c in owned]
-    cam = _camera(pipe, mv, pr)
+    cam = rm.RenderCamera(mv, pr, pipe.cfg.render_width, pipe.cfg.render_height)
     flags = slab_flags(pipe, mask16, axis)
     results = [sweep_local(pipe, v, c, flags, cam, axis, flip,
                            window_of(halos, r, n, pipe.tsdf_cfg.res[axis], flip), r, n)

@@ -14,23 +14,10 @@ The staged fast path of the JAX pipeline takes these gates:
   pixel warp  affine (residual <= ``warp_tol``) -> piecewise (``warp_knots``
               knots, residual <= ``pw_warp_tol``; kernel 5) -> the exact
               gather of the cv volumes (also ``use_warp=False``)
-  integrator  ``use_pallas`` on: the per-brick quadratic warp
-              (``affine_tol``): dense emit into the sweep's z-major layout
-              when ``Vx % 128 == 0`` (kernel 1), else block-major (kernel
-              6); the dense warp table for ``use_affine=False`` or a
-              residual over ``affine_tol`` (kernel 7, no depth-band cull).
-              ``use_pallas`` off: the XLA table integrator
-              ``tsdf_fast.integrate_sparse`` (kernel 7's window mode, no
-              affine bake, no depth-band cull)
-
-``use_pallas=None`` is the JAX gate (rgbd_recon_tpu/runtime/pipeline.py:
-444-449): on when the volume has at least 8 bricks on every axis
-(``min(res) // 16 >= 8``). Its other clause there, "the backend is a TPU",
-holds here wherever the port's kernels exist: on the card, and through
-their plain versions on the CPU. So a 48^3 volume (``voxel_size`` 0.05)
-integrates as the JAX pipeline integrates it, with the XLA formulation;
-``use_pallas=True`` keeps the kernel tiers at any size. Brick marking
-is kernel 4 at every volume size.
+  integrator  one of four tiers behind ``runtime/integrator.py``: kernel 1's
+              dense emit, kernel 6 block-major, kernel 7's warp table or the
+              XLA table integrator (``use_pallas``, ``use_affine``,
+              ``affine_tol``); brick marking is kernel 4 at every size
 
 The reference path (JAX ``use_fast`` false: ``fast_path`` or
 ``use_bricks`` off, or a volume that is not 16-aligned; the res is derived
@@ -48,11 +35,11 @@ Fused mode (``cfg.fused``, read at every step: a caller may assign
 a CUDA device one replay of a CUDA graph captured for the frame's sweep
 variant ``(axis, flip)`` (one graph on the reference path, as the JAX
 pipeline runs ``_step`` there), captured at first use with a log line
-(``runtime/frame_graph.py``); on the CPU the frame function eagerly. Its
-sweep keeps the slab flags on the device (``slab_occupancy_device``),
-bit for bit the staged frame's host skip. The graphs hold the addresses
-of the session bakes, so whatever replaces a bake (``_configure``,
-``retune``, ``reload``, a new sensor size) drops them first.
+(``runtime/frame_graph.py``); on the CPU the frame function eagerly. The
+sweep's slab flags stay on a CUDA device (no sync), fused or staged; the
+CPU's plain sweep skips the empty slices by host flags (the same bits). The
+graphs hold the addresses of the session bakes, so whatever replaces a
+bake (``_configure``, ``retune``, ``reload``, a new sensor size) drops them.
 Session bakes run lazily at the first frame's sensor size, in torch, on
 the pipeline's ``device``; ``preprocess`` runs them and the preprocessing
 alone (the reconstruction strategies of ``models/`` draw from its
@@ -70,9 +57,8 @@ pipeline starts its four stage timers empty. With the span recorder on
 fused on the card, host spans of the key, the load, the launch and the
 outputs, and device spans of the stages (3recon as its sweep and its
 shade) timed inside the graph, with counts of the slices swept and of the
-integrator's (sensor, block) pairs (``_count_pairs``); a fused CPU frame
-has the same stage spans on the host clock, a staged frame only
-``frame``.
+integrator's (sensor, block) pairs; a fused CPU frame has the same stage
+spans on the host clock, a staged frame only ``frame``.
 """
 from __future__ import annotations
 
@@ -91,16 +77,12 @@ from ..ops import inpaint
 from ..ops import preprocess as pp
 from ..ops import raymarch as rm
 from ..ops import raymarch_fast as rmf
-from ..ops import tsdf_affine
 from ..ops import tsdf as tsdf_ops
-from ..ops import tsdf_fast
-from ..ops.tsdf_dense import integrate_dense
 from ..ops.tsdf_fast import BRICK
-from ..ops.tsdf_persist import XSTRIDE2, integrate_affine
-from ..ops.tsdf_sparse import integrate_sparse, win_offsets_pallas
 from ..ops.warp import bake_piecewise_warp, bake_pixel_warp
 from ..utils.math import look_at, perspective
 from ..utils.timers import SPANS, TimerDatabase
+from . import integrator
 from .frame_graph import FrameGraphs
 
 
@@ -198,14 +180,12 @@ class FramePipeline:
 
     def _configure(self, cfg: PipelineConfig, keep_warp_bake: bool = False) -> None:
         """(Re)build everything derived from the static config. With
-        ``keep_warp_bake`` the voxel->sensor bake (affine coefficients or
-        warp table) and the session bakes of the sensor size (pixel warp,
-        device rig, windows) survive as long as they fit the new config:
-        the integrator bake is redone when the volume res changed (a
-        bricking toggle moves the res between align 16 and 1) or when the
-        fast path turns on with no bake held. The depth-band cull bake,
-        which reads the TSDF limit, is re-derived at the next frame. Drops
-        every fused-frame graph."""
+        ``keep_warp_bake`` the integrator (its bake and windows) and the
+        session bakes of the sensor size (pixel warp, device rig) survive
+        while they fit the new config: ``integrator.choose`` keeps the one
+        held, across the reference path too, while its key holds (a
+        bricking toggle moves the res between align 16 and 1). Drops every
+        fused-frame graph."""
         self._graphs.drop()
         if cfg.tsdf_res is not None:
             tsdf_cfg = tsdf_ops.TsdfConfig(cfg.tsdf_res, cfg.tsdf_limit)
@@ -218,8 +198,6 @@ class FramePipeline:
         vx, vy, vz = tsdf_cfg.res
         self.cfg = cfg
         self.tsdf_cfg = tsdf_cfg
-        self.use_fast = bool(cfg.fast_path and cfg.use_bricks
-                             and not (vx % BRICK or vy % BRICK or vz % BRICK))
         self.brick_grid = brick_ops.make_brick_grid(
             self.bbox, cfg.brick_size, cfg.voxel_size)
         self.pre_cfg = pp.PreprocessConfig(
@@ -227,56 +205,18 @@ class FramePipeline:
             use_processed_depth=cfg.use_processed_depth,
             refine_boundary=cfg.refine_boundary,
         )
+        if not keep_warp_bake:
+            self._held = None           # the last integrator made
+            self._sensor_hw = None      # the session bakes redo at the next frame
+        self.integrator = integrator.choose(self.rig, tsdf_cfg, cfg, self.device, self._log,
+                                            self._table_cache_dir, self._held)
+        self._held = self.integrator or self._held
+        self.use_fast = self.integrator is not None
         nb_total = (vx // BRICK) * (vy // BRICK) * (vz // BRICK) if self.use_fast else 0
         if cfg.max_bricks is not None:
             self.max_bricks = min(cfg.max_bricks, nb_total) if nb_total else cfg.max_bricks
         else:
             self.max_bricks = min(nb_total, max(1024, nb_total // 4)) if nb_total else 0
-        self._cull_bake = None
-        if not keep_warp_bake:
-            self.affine = self.tables = None
-            self._bake_key = None
-            self._sensor_hw = None      # the session bakes redo at the next frame
-        key = (tsdf_cfg.res, self._use_pallas(), cfg.use_affine, cfg.affine_tol)
-        if self.use_fast and self._bake_key != key:
-            self._bake_integrator()
-            self._bake_key = key
-        # dense emit: whole 128-voxel x-rows and the quadratic warp
-        self._dense_emit = self.use_fast and self.affine is not None and vx % 128 == 0
-        if self.use_fast:
-            self._log(f"integrator at {tsdf_cfg.res}: " + (
-                "dense emit (kernel 1)" if self._dense_emit else
-                f"block-major (kernel 6; Vx % 128 = {vx % 128})" if self.affine is not None
-                else "warp table (kernel 7)" if self._use_pallas()
-                else "table integrator (tsdf_fast)"))
-
-    def _bake_integrator(self) -> None:
-        """The voxel->sensor bake of the fast path's integrator tier: the
-        per-brick affine warp, else the dense warp table."""
-        cfg = self.cfg
-        self.affine = self.tables = None
-        self._win_off = None            # the windows follow the bake
-        if self._use_pallas() and cfg.use_affine is not False:
-            self._log(f"baking per-brick affine warp at {self.tsdf_cfg.res} ...")
-            aff = tsdf_affine.bake_affine(self.rig, self.tsdf_cfg, self.device)
-            err = float(aff.max_err.max())
-            if cfg.use_affine or err <= cfg.affine_tol:
-                self.affine = aff
-                self._log(f"  affine residual {err:.2e} (tol {cfg.affine_tol})")
-            else:
-                self._log(f"  affine residual {err:.2e} > tol {cfg.affine_tol};"
-                          " falling back to the dense warp table")
-        if self.affine is None:
-            self._log(f"baking voxel->sensor warp tables at {self.tsdf_cfg.res} ...")
-            self.tables = tsdf_fast.tables_cached(self.rig, self.tsdf_cfg, self.device,
-                                                  self._table_cache_dir, self._log)
-
-    def _use_pallas(self) -> bool:
-        """The integrator tier gate (module docstring): the kernel tiers,
-        or with False the XLA table integrator."""
-        if self.cfg.use_pallas is not None:
-            return self.cfg.use_pallas
-        return min(self.tsdf_cfg.res) // BRICK >= 8
 
     def retune(self, voxel_size: float | None = None,
                brick_size: float | None = None,
@@ -339,54 +279,20 @@ class FramePipeline:
         return warp
 
     def _session(self, h: int, w: int) -> None:
-        """The session bakes of the sensor size (h, w); drops the fused-frame
-        graphs when one is (re)made."""
-        def bakes():
-            return [getattr(self, a, None) for a in ("_warp", "_drig", "_win_off", "_cull_bake")]
-
-        before = bakes()
-        self._session_bakes(h, w)
-        if any(a is not b for a, b in zip(before, bakes())):
-            self._graphs.drop()
-
-    def _session_bakes(self, h: int, w: int) -> None:
+        """The session bakes of the sensor size (h, w), the integrator's
+        with them; drops the fused-frame graphs when one is (re)made."""
         if self._sensor_hw != (h, w):
             self._warp = self._bake_warp(h, w)
             self._sensor_hw = (h, w)
-            self._drig = self._win_off = None
-            self._cull_bake = None
+            self._drig = None
         # the gather tier and the reference path sample the cv volumes
         # every frame
         volumes = self._warp is None or not self.use_fast
-        if self._drig is None or (self._drig.cv_xyz is not None) != volumes:
+        remade = self._drig is None or (self._drig.cv_xyz is not None) != volumes
+        if remade:
             self._drig = device_rig(self.rig, self.device, volumes=volumes)
-        if self.use_fast and self._win_off is None:
-            if not self._use_pallas():
-                self._win_off = tsdf_fast.win_offsets(self.tables, h, w,
-                                                      self.cfg.sample_window)
-            elif self.affine is None:
-                self._win_off = win_offsets_pallas(self.tables, h, w)
-            else:
-                if self._dense_emit:
-                    self._wy, clip_y = tsdf_affine.auto_window_rows(self.affine, h)
-                    self._wx, self._xstride, clip_x = tsdf_affine.auto_window_cols(
-                        self.affine, w)
-                    self._log(f"integration window: {self._wy} rows ({clip_y:.2%} clip), "
-                              f"{self._wx} cols at stride {self._xstride} ({clip_x:.2%} clip)")
-                else:
-                    # kernel 6 reads its taps from the frame in device memory,
-                    # so its window is the whole frame and clamps no footprint;
-                    # the TPU kernel's 48 rows and 64 columns clamped a fifth of
-                    # the occupied (sensor, block) pairs of five sensors at
-                    # 208x224x208
-                    self._wy, self._wx, self._xstride = h, w, XSTRIDE2
-                    self._log(f"integration window: the whole {h}x{w} frame (block-major)")
-                self._win_off = tsdf_affine.win_offsets_affine(
-                    self.affine, h, w, self._wy, self._wx, self._xstride)
-        if (self._cull_bake is None and self.use_fast and self.affine is not None
-                and self.cfg.brick_cull):
-            self._cull_bake = tsdf_affine.bake_cull(self.affine, h, w,
-                                                    float(self.tsdf_cfg.limit))
+        if (self.use_fast and self.integrator.session(h, w, self.cfg.brick_cull)) or remade:
+            self._graphs.drop()
 
     def _sweep_res(self) -> tuple[int, int]:
         if self.cfg.sweep_res is not None:
@@ -418,53 +324,18 @@ class FramePipeline:
             else:
                 mask16 = brick_ops.block_occupancy(mask, self.brick_grid,
                                                    self.tsdf_cfg.res, BRICK)
-                if self._cull_bake is not None:
-                    mask16, _, cls = tsdf_affine.block_depth_cull_baked(
-                        mask16, self._cull_bake, frames.depth[..., 0], frames.quality,
-                        frames.silhouette, float(self.tsdf_cfg.limit))
+                mask16, cls = self.integrator.cull(mask16, frames)
                 n_occ = mask16.sum().to(torch.int32)
         return PreOut(frames, mask, vox_mask, mask16, occupied, n_occ, cls)
 
     def _integrate(self, pre: PreOut):
         """2integrate: fused TSDF + color volumes, by the integrator tier;
         on the reference path every voxel, f32 channels-last."""
-        frames, mask16 = pre.frames, pre.mask16
         if not self.use_fast:
-            return (tsdf_ops.integrate(frames, self._drig, self.tsdf_cfg, pre.vox_mask),
-                    tsdf_ops.integrate_colors(frames, self._drig, self.tsdf_cfg, pre.vox_mask))
-        if not self._use_pallas():
-            return tsdf_fast.integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
-                                              self.max_bricks, self.cfg.sample_window,
-                                              self._win_off)
-        if self.affine is None:
-            return integrate_sparse(frames, self.tables, self.tsdf_cfg, mask16,
-                                    self.max_bricks, self._win_off)
-        self._count_pairs(pre)
-        if not self._dense_emit:
-            return integrate_affine(frames, self.affine, self.tsdf_cfg, mask16,
-                                    self.max_bricks, self._win_off, self._wy,
-                                    wx=self._wx, xstride=self._xstride)
-        return integrate_dense(
-            frames, self.affine, self.tsdf_cfg, mask16, self.max_bricks,
-            self._win_off, self._wy, self._wx, self._xstride, pre.cls)
-
-    def _count_pairs(self, pre: PreOut) -> None:
-        """The quadratic-warp integrators' counters (kernels 1 and 6), with
-        the recorder on: ``integrate.pairs``, the (sensor, block) pairs
-        handed to the integrator (every sensor with each of the first
-        ``max_bricks`` occupied blocks of the culled ``mask16``), and
-        ``integrate.pairs_culled``, those of them that the depth-band cull
-        classes NONE (1: provably no change) or FRONT (2: in front of the
-        sensor's surface). Kernel 1 skips their fusion (NONE) or sets the
-        front value without sampling (FRONT); INVALID pairs (3) fuse the
-        corner pixel there. Kernel 6 takes no classes and fuses them all."""
-        if not SPANS.on:
-            return
-        m = pre.mask16.reshape(-1)
-        fused = m & (torch.cumsum(m, 0) <= self.max_bricks)
-        SPANS.count("integrate.pairs", fused.expand(pre.frames.depth.shape[0], -1))
-        if pre.cls is not None:
-            SPANS.count("integrate.pairs_culled", ((pre.cls == 1) | (pre.cls == 2)) & fused)
+            return (tsdf_ops.integrate(pre.frames, self._drig, self.tsdf_cfg, pre.vox_mask),
+                    tsdf_ops.integrate_colors(pre.frames, self._drig, self.tsdf_cfg,
+                                              pre.vox_mask))
+        return self.integrator.integrate(pre.frames, pre.mask16, self.max_bricks, pre.cls)
 
     def _render(self, pre: PreOut, vol, cvol, mv, proj, axis, flip):
         """3recon: the sweep-composited raymarch, or on the reference path
@@ -483,8 +354,8 @@ class FramePipeline:
                 brick_size_vol=grid.brick_size / float(np.max(self.bbox.size)),
                 brick_extent=extent)
         occ = None
-        if cfg.skip_space:      # fused: the flags stay on the device
-            occ = (rmf.slab_occupancy_device if cfg.fused else rmf.slab_occupancy)(
+        if cfg.skip_space:      # on the card the flags stay on the device (module docstring)
+            occ = (rmf.slab_occupancy_device if vol.is_cuda else rmf.slab_occupancy)(
                 pre.mask16, axis, self.tsdf_cfg.res[axis])
             SPANS.count("render.slices_occupied", occ)
             SPANS.count("render.slices_swept", len(occ))
@@ -493,7 +364,7 @@ class FramePipeline:
         scfg = rmf.SweepConfig(res=self._sweep_res())
         with span("3recon.sweep"):
             res = rmf.sweep(vol, cvol, cam, self.bbox, limit, axis, flip, scfg, occ,
-                            self._dense_emit)
+                            self.integrator.zmajor)
         with span("3recon.shade"):
             return rmf.shade_sweep(res, cam, self.bbox, axis, flip, vol.shape[2 - axis],
                                    params, scfg)

@@ -51,7 +51,8 @@ def footprints(tsdf_n: int = 256, sensors: int = 4, device: str = "cuda",
     pre = pipe._pre(*pipe._sensor_inputs(depth, color))
     mask16 = pre.mask16.cpu().numpy()
     log(f"occupied bricks: {int(pre.n_occ)}")
-    ext_u, ext_v, valid = half_extents(pipe.affine.coeffs.cpu().numpy(), width, height)
+    ext_u, ext_v, valid = half_extents(pipe.integrator.affine.coeffs.cpu().numpy(), width,
+                                       height)
     occ = mask16.reshape(-1)[None, :] & valid
     stats = {}
     for name, e in (("u(x)", ext_u), ("v(y)", ext_v)):

@@ -177,7 +177,7 @@ def main(argv: list[str] | None = None) -> int:
     rows, ab_rows = [], []
     if not args.ab_only:
         rows = renderer_parity(vol, cvol, bbox, limit, proj, rw, rh, pipe._sweep_res(),
-                               pipe._dense_emit, log)
+                               pipe.integrator.zmajor, log)
     if args.integrate_ab:
         # the exact-table integration of the same frames (the warp the
         # affine coefficients approximate), its capacity sized to the
@@ -193,7 +193,7 @@ def main(argv: list[str] | None = None) -> int:
         sweep = rmf.SweepConfig(res=pipe._sweep_res())
         for name, cam, axis, flip in views(bbox, proj, rw, rh, dev):
             fast = rmf.render_fast(vol, cvol, cam, bbox, limit, axis, flip, cfg=sweep,
-                                   zmajor=pipe._dense_emit)
+                                   zmajor=pipe.integrator.zmajor)
             fast_tab = rmf.render_fast(vol_tab, cvol_tab, cam, bbox, limit, axis, flip,
                                        cfg=sweep, zmajor=False)
             ab = render_parity(_host(fast_tab), _host(fast))

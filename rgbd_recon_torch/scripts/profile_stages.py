@@ -28,7 +28,6 @@ from ..ops import inpaint
 from ..ops import preprocess as pp
 from ..ops import raymarch as rm
 from ..ops import raymarch_fast as rmf
-from ..ops import tsdf_affine
 from ..ops.tsdf_fast import BRICK
 from ..runtime.pipeline import FramePipeline, PipelineConfig
 from ..utils.math import Bbox
@@ -94,9 +93,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(f"== config: {pipe.tsdf_cfg.res}, {k} sensors, color {cw}x{ch} u8, {rw}x{rh}, "
-          f"integrator "
-          f"{'dense emit' if pipe._dense_emit else 'block-major' if pipe.affine is not None else 'table'}"
-          f"; {card.stdout.strip()}")
+          f"integrator {pipe.integrator.tier}; {card.stdout.strip()}")
 
     # --- preprocess pieces
     rig_d, cfg_p, warp = pipe._drig, pipe.pre_cfg, pipe._warp
@@ -124,10 +121,9 @@ def main() -> int:
         c, pipe.cfg.min_voxels_per_brick), [(counts,)], iters)
     mask16 = timeit("block_occupancy", lambda m: brick_ops.block_occupancy(
         m, pipe.brick_grid, pipe.tsdf_cfg.res, BRICK), [(mask,)], iters)
-    if pipe._cull_bake is not None:
-        timeit("block_depth_cull_baked", lambda m, f: tsdf_affine.block_depth_cull_baked(
-            m, pipe._cull_bake, f.depth[..., 0], f.quality, f.silhouette,
-            float(pipe.tsdf_cfg.limit)), [(mask16, p.frames) for p in pres], iters)
+    if pipe.integrator.cull_bake is not None:
+        timeit("block_depth_cull_baked", pipe.integrator.cull,
+               [(mask16, p.frames) for p in pres], iters)
     timeit("1preprocess (_pre)", pipe._pre, staged, iters)
     vols = [pipe._integrate(p) for p in pres]
     timeit("2integrate (_integrate)", pipe._integrate, [(p,) for p in pres], iters)
@@ -150,9 +146,11 @@ def main() -> int:
         args = [(v, c, o) for (v, c), o in zip(vols, flags)]
         graph = label == "device flags"     # the kernel copies host flags to the card
         timeit(f"sweep ({label})", lambda v, c, o: rmf.sweep(
-            v, c, cam, bbox, lim, axis, flip, scfg, o, pipe._dense_emit), args, iters, graph)
+            v, c, cam, bbox, lim, axis, flip, scfg, o, pipe.integrator.zmajor), args, iters,
+            graph)
         out = timeit(f"render_fast ({label})", lambda v, c, o: rmf.render_fast(
-            v, c, cam, bbox, lim, axis, flip, rm.RenderParams(), scfg, o, pipe._dense_emit),
+            v, c, cam, bbox, lim, axis, flip, rm.RenderParams(), scfg, o,
+            pipe.integrator.zmajor),
             args, iters, graph)
 
     # --- holefill

@@ -285,7 +285,7 @@ def port_stages(pipe, depth, color, gold: dict, views=tuple(VIEWS),
                 "world_valid": fr.world_valid[pix].cpu().numpy()})
     vol, cvol = pipe._integrate(pre)
     out["tsdf"] = _np(vol)
-    out["cvol"] = _color_at(cvol, gold, pipe._dense_emit)
+    out["cvol"] = _color_at(cvol, gold, pipe.integrator.zmajor)
     out["views"] = _render_views(pipe, pre, vol, cvol, views)
     if on_ref_tsdf:
         ref = torch.from_numpy(gold["A/tsdf"]).to(pipe.device, torch.bfloat16)
@@ -335,7 +335,7 @@ def _render_views(pipe, pre, vol, cvol, views) -> dict:
         cam = rm.RenderCamera(pipe._t(mv), pipe._t(proj), cfg.render_width, cfg.render_height)
         occ = rmf.slab_occupancy(pre.mask16, axis, pipe.tsdf_cfg.res[axis])
         res = rmf.sweep(vol, cvol, cam, pipe.bbox, limit, axis, flip, sweep_cfg, occ,
-                        zmajor=pipe._dense_emit)
+                        zmajor=pipe.integrator.zmajor)
         shaded = rmf.shade_sweep(res, cam, pipe.bbox, axis, flip, vol.shape[2 - axis], params,
                                  sweep_cfg)
         filled = pipe._fill(shaded.color, shaded.depth)

@@ -31,6 +31,7 @@ from rgbd_recon_torch.app import AppConfig, FrameMonitor, KinectClientApp, load_
 from rgbd_recon_torch.calibration import synthetic
 from rgbd_recon_torch.calibration.files import load_scene
 from rgbd_recon_torch.io.stream import FrameFormat, StreamWriter
+from rgbd_recon_torch.runtime.integrator import TABLE
 from rgbd_recon_torch.runtime.pipeline import FramePipeline, PipelineConfig
 from rgbd_recon_torch.utils.math import Bbox
 from rgbd_recon_torch.utils.png import read_png
@@ -104,9 +105,9 @@ def _first_frame(app):
 def jax_frame(scene):
     app = _app(JKinectClientApp, JAppConfig, jload_config, scene)
     rgba, out = _first_frame(app)
+    jpipe = app.pipeline
     return types.SimpleNamespace(color=np.asarray(rgba), depth=np.asarray(out.depth),
-                                 hit=np.asarray(out.hit),
-                                 use_pallas=app.pipeline._use_pallas())
+                                 hit=np.asarray(out.hit), use_pallas=jpipe._use_pallas())
 
 
 def test_app_frame_matches_jax(scene, jax_frame):
@@ -118,7 +119,8 @@ def test_app_frame_matches_jax(scene, jax_frame):
     app = _app(KinectClientApp, AppConfig, load_config, scene, device="cpu")
     pipe = app.pipeline
     assert pipe.tsdf_cfg.res == (48, 48, 48)
-    assert not pipe._use_pallas() and pipe.affine is None and pipe.tables is not None
+    integ = pipe.integrator
+    assert integ.tier == TABLE and integ.affine is None and integ.tables is not None
     assert jax_frame.use_pallas is False
     rgba, out = _first_frame(app)
     assert rgba.shape == (64, 96, 4) and bool(torch.isfinite(rgba).all())
@@ -166,7 +168,8 @@ def test_app_control_channel(scene):
     tsdf_limit retune, a shade-mode rebuild and a switch to recon mode 2
     (trigrid) apply with a log line each, a bricking-off command applies
     with the res it derives logged, and the loop keeps streaming; GET
-    /state reflects it."""
+    /state reflects it. Bricking back on returns the integrator held over
+    the reference path, its bake kept."""
     logs = []
     app = _app(KinectClientApp, AppConfig, load_config, scene, device="cpu",
                serve_port=0)
@@ -174,7 +177,8 @@ def test_app_control_channel(scene):
     try:
         assert app.viewer._server.server_address[0] == "127.0.0.1"
         assert app.frame_step() is not None
-        tables, warp = app.pipeline.tables, app.pipeline._warp
+        integ, warp = app.pipeline.integrator, app.pipeline._warp
+        tables = integ.tables
         body = json.dumps({"tsdf_limit": 0.04, "recon_mode": 2, "bricking": False,
                            "shade_mode": 1, "draw_grid": True}).encode()
         req = urllib.request.Request(f"http://127.0.0.1:{app.viewer.port}/control",
@@ -185,7 +189,7 @@ def test_app_control_channel(scene):
         assert app.pipeline.cfg.tsdf_limit == pytest.approx(0.04)
         assert app.pipeline.cfg.shade_mode == 1 and not app.pipeline.cfg.use_bricks
         assert app.cfg.recon_mode == 2
-        assert app.pipeline.tables is tables and app.pipeline._warp is warp
+        assert app.pipeline.integrator is None and app.pipeline._warp is warp
         assert any(s == "control: recon_mode -> trigrid" for s in logs), logs
         assert not any("refused" in s and "recon_mode" in s for s in logs), logs
         assert "control: bricking off: volume res (40, 45, 40) (reference path)" in logs, logs
@@ -195,6 +199,8 @@ def test_app_control_channel(scene):
             f"http://127.0.0.1:{app.viewer.port}/state", timeout=10))
         assert state["recon_mode"] == 2 and state["tsdf_limit"] == pytest.approx(0.04)
         assert app.frame_step() is not None
+        app.apply_control({"bricking": True})
+        assert app.pipeline.integrator is integ and integ.tables is tables
     finally:
         app.quit()
 
@@ -295,13 +301,15 @@ def test_retune_tsdf_limit_keeps_bakes(scene):
     pipe = _pipe(rig, use_pallas=True)
     mv, proj = pipe.default_camera()
     pipe.step(scene["depth"], scene["color"], mv, proj)
-    kept = (pipe.affine, pipe._warp, pipe._drig, pipe._win_off)
-    cull = pipe._cull_bake
+    integ = pipe.integrator
+    kept = (integ.affine, pipe._warp, pipe._drig, integ.win_off)
+    cull = integ.cull_bake
     pipe.retune(tsdf_limit=0.04)
     out = pipe.step(scene["depth"], scene["color"], mv, proj)
-    assert all(a is b for a, b in zip(kept, (pipe.affine, pipe._warp, pipe._drig,
-                                             pipe._win_off)))
-    assert pipe._cull_bake is not cull
+    assert pipe.integrator is integ
+    assert all(a is b for a, b in zip(kept, (integ.affine, pipe._warp, pipe._drig,
+                                             integ.win_off)))
+    assert integ.cull_bake is not cull
     fresh = _pipe(rig, tsdf_limit=0.04, use_pallas=True).step(scene["depth"], scene["color"],
                                                                mv, proj)
     for f in ("color", "depth", "hit", "tsdf", "occupied_bricks"):
@@ -324,20 +332,22 @@ def test_retune_voxel_size_matches_jax_res(scene):
                                                  voxel_size=0.05, brick_size=0.2,
                                                  tsdf_limit=0.02))
     assert pipe.tsdf_cfg.res == jpipe.tsdf_cfg.res == (48, 48, 48)
-    tables = pipe.tables
+    tables = pipe.integrator.tables
     pipe.retune(voxel_size=0.1)
     jpipe.retune(voxel_size=0.1)
     assert pipe.tsdf_cfg.res == jpipe.tsdf_cfg.res == (32, 32, 32)
     # both volumes are under 8 bricks an axis: the warp tables, re-baked
-    assert pipe.affine is None and jpipe.affine is None
-    assert pipe.tables is not tables and tuple(pipe.tables.pos_blocked.shape[:2]) == (2, 8)
+    integ = pipe.integrator
+    assert integ.affine is None and jpipe.affine is None
+    assert integ.tables is not tables and tuple(integ.tables.pos_blocked.shape[:2]) == (2, 8)
     mv, proj = pipe.default_camera()
     pipe.warmup(scene["depth"], scene["color"], mv, proj)
     for stage in ("session bakes", "1preprocess", "2integrate", "3recon", "holefill"):
         assert any(s.startswith(f"  {stage}") for s in logs), (stage, logs)
-    kept = (pipe.tables, pipe._warp, pipe._win_off)
+    kept = (integ.tables, pipe._warp, integ.win_off)
     pipe.reload()
-    assert all(a is b for a, b in zip(kept, (pipe.tables, pipe._warp, pipe._win_off)))
+    assert pipe.integrator is integ
+    assert all(a is b for a, b in zip(kept, (integ.tables, pipe._warp, integ.win_off)))
     out = pipe.step(scene["depth"], scene["color"], mv, proj)
     assert tuple(out.tsdf.shape) == (32, 32, 32) and bool(torch.isfinite(out.color).all())
     n = len(logs)

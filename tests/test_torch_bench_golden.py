@@ -407,7 +407,7 @@ def port_a(gold, inputs):
     """The default pipeline's frame, stage by stage, at the default camera."""
     rig, bbox, depth, color = inputs
     pipe = FramePipeline(rig, bg.bench_config(bbox, N), device="cpu")
-    assert pipe._dense_emit and pipe.max_bricks == 1024
+    assert pipe.integrator.zmajor and pipe.max_bricks == 1024
     return bg.port_stages(pipe, depth, color, gold, views=("default",))
 
 

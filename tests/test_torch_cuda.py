@@ -181,11 +181,12 @@ def test_integrate_dense_cuda(dev):
     pre = pipe._pre(d, c)
     frames, cls = pre.frames, pre.cls
     idx, count, slots = occupied_bricks(pre.mask16, pipe.max_bricks)
-    rest = (pipe._win_off, cls, pipe.tsdf_cfg.res, pipe._wy, pipe._wx, pipe._xstride,
+    integ = pipe.integrator
+    rest = (integ.win_off, cls, pipe.tsdf_cfg.res, integ.wy, integ.wx, integ.xstride,
             pipe.tsdf_cfg.limit)
-    vol, cvol = tsdf_dense.integrate_dense_cuda(pack_planes(frames), pipe.affine.coeffs, idx,
+    vol, cvol = tsdf_dense.integrate_dense_cuda(pack_planes(frames), integ.affine.coeffs, idx,
                                                 count, slots, *rest)
-    pvol, pcvol = tsdf_dense.integrate_dense_plain(pack_frames(frames), pipe.affine.coeffs,
+    pvol, pcvol = tsdf_dense.integrate_dense_plain(pack_frames(frames), integ.affine.coeffs,
                                                    idx, count, *rest)
     v, pv = vol.float(), pvol.float()
     assert ((v - pv).abs() > 1e-4).float().mean() < 1e-4
@@ -239,13 +240,14 @@ def test_integrate_affine_cuda(dev):
     formulations."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, n=96, use_pallas=True)
     packed, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
-    rest = (pipe._win_off, pipe.tsdf_cfg.res, pipe._wy, pipe.tsdf_cfg.limit)
-    win = {"wx": pipe._wx, "xstride": pipe._xstride}
-    vol, cvol = tsdf_persist.integrate_affine_cuda(planes, pipe.affine.coeffs, idx, count,
+    integ = pipe.integrator
+    rest = (integ.win_off, pipe.tsdf_cfg.res, integ.wy, pipe.tsdf_cfg.limit)
+    win = {"wx": integ.wx, "xstride": integ.xstride}
+    vol, cvol = tsdf_persist.integrate_affine_cuda(planes, integ.affine.coeffs, idx, count,
                                                    slots, *rest, **win)
     assert vol.dtype == torch.float32 and cvol.shape == (96, 96, 96, 4)
     _assert_integrator_bound(vol, cvol, *tsdf_persist.integrate_affine_plain(
-        packed, pipe.affine.coeffs, idx, count, *rest, **win))
+        packed, integ.affine.coeffs, idx, count, *rest, **win))
 
 
 def test_scatter_dense_cuda(dev):
@@ -273,9 +275,10 @@ def test_integrate_affine_raw_scatter_cuda(dev):
     voxel-order output bit for bit (color after the channel permute)."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, n=96, use_pallas=True)
     _, idx, count, slots, planes = _integrator_args(pipe, depth, color, mv, proj)
-    args = (planes, pipe.affine.coeffs, idx, count, slots, pipe._win_off, pipe.tsdf_cfg.res,
-            pipe._wy, pipe.tsdf_cfg.limit)
-    win = {"wx": pipe._wx, "xstride": pipe._xstride}
+    integ = pipe.integrator
+    args = (planes, integ.affine.coeffs, idx, count, slots, integ.win_off, pipe.tsdf_cfg.res,
+            integ.wy, pipe.tsdf_cfg.limit)
+    win = {"wx": integ.wx, "xstride": integ.xstride}
     vbm, cbm, visited = tsdf_persist.integrate_affine_cuda(*args, raw=True, **win)
     assert int(visited.sum()) == int(count) > 0
     v, c = assemble.scatter_dense_cuda(vbm, cbm, idx, count, pipe.tsdf_cfg.res,
@@ -289,7 +292,9 @@ def test_integrate_sparse_cuda(dev):
     formulations."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, use_affine=False)
     packed, idx, count, _, _ = _integrator_args(pipe, depth, color, mv, proj)
-    args = (packed, pipe.tables.pos_blocked, idx, count, pipe._win_off, pipe.tsdf_cfg.res,
+    integ = pipe.integrator
+    assert integ.tier == "warp table"
+    args = (packed, integ.tables.pos_blocked, idx, count, integ.win_off, pipe.tsdf_cfg.res,
             pipe.tsdf_cfg.limit)
     vol, cvol = tsdf_sparse.integrate_sparse_cuda(*args)
     _assert_integrator_bound(vol, cvol, *tsdf_sparse.integrate_sparse_plain(*args))
@@ -302,10 +307,11 @@ def test_integrate_sparse_window_cuda(dev, n, shift):
     bound: the pipeline's own tier and windows, then (shift) origins moved
     past the image, which both clamp into it as dynamic_slice does."""
     pipe, depth, color, mv, proj = _small_pipeline(dev, n=n)
-    assert not pipe._use_pallas() and pipe.affine is None
+    integ = pipe.integrator
+    assert integ.tier == "table integrator" and integ.affine is None
     packed, idx, count, _, _ = _integrator_args(pipe, depth, color, mv, proj)
-    win_off = (pipe._win_off + shift).contiguous()
-    args = (packed, pipe.tables.pos_blocked, idx, count, win_off, pipe.tsdf_cfg.res,
+    win_off = (integ.win_off + shift).contiguous()
+    args = (packed, integ.tables.pos_blocked, idx, count, win_off, pipe.tsdf_cfg.res,
             pipe.tsdf_cfg.limit)
     kern = native.KERNELS["integrate_sparse_window"]
     before = kern.launches
@@ -582,7 +588,7 @@ def test_reference_path_cuda(dev):
     outs = {}
     for d in (dev, torch.device("cpu")):
         pipe, depth, color, mv, proj = _small_pipeline(d, n=96, fast_path=False)
-        assert not pipe.use_fast and not pipe._use_pallas()
+        assert not pipe.use_fast and pipe.integrator is None
         before = {k: native.KERNELS[k].launches
                   for k in ("warp_screen", "bilateral_accum", "mark_bricks")}
         outs[d.type] = pipe.step(depth, color, mv, proj)
@@ -934,7 +940,7 @@ def _k5_pipeline(k5_208):
     cell, rig, *_ = k5_208
     pipe = harness.pipeline(cell.config, rig, torch.device("cuda"))
     assert pipe.tsdf_cfg.res == (208, 224, 208)
-    assert not pipe._dense_emit and pipe.affine is not None
+    assert pipe.integrator.tier == "block-major"
     return pipe
 
 

@@ -299,7 +299,7 @@ def test_distorted_slice_matches_jax(ref):
         render_width=RW, render_height=RH, tsdf_res=RES, voxel_size=voxel,
         sweep_res=SWEEP, use_pallas=True), log=logs.append, device="cpu")
     got = pipe.step(ref.depth, ref.color, mv, proj)
-    assert isinstance(pipe._warp, PiecewiseWarp) and pipe._dense_emit, logs
+    assert isinstance(pipe._warp, PiecewiseWarp) and pipe.integrator.zmajor, logs
     assert pipe.check_capacity(got) == int(np.asarray(m2).sum())
     s = render_parity(
         types.SimpleNamespace(color=np.asarray(filled), depth=np.asarray(out.depth),

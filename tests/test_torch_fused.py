@@ -1,11 +1,12 @@
 """Fused mode of the port's ``FramePipeline`` on the CPU, at small size.
 
 On the card a fused frame is one CUDA graph replay (tests/
-test_torch_cuda.py, ``chip_smoke.py`` phase 12); on the CPU the same frame
-function runs eagerly, with the sweep's slab flags kept on the device
-(``raymarch_fast.slab_occupancy_device``). Held here: the fused frame bit
-for bit against the staged frame (fast and reference path), the gated
-sweep against the host-skip sweep, the session API around the graphs, the
+test_torch_cuda.py, ``chip_smoke.py`` phase 12), the sweep's slab flags
+kept on the device (``raymarch_fast.slab_occupancy_device``); on the CPU
+the same frame function runs eagerly, with the flags on the host. Held
+here: the fused frame bit for bit against the staged frame (fast and
+reference path), the gated sweep against the host-skip sweep, the session
+API around the graphs, the
 frame's freedom from host round trips (what a capture needs), and the JAX
 package's own fused ``_step`` against the port's fused step at the
 render-parity bounds of tests/test_golden.py:65-69.
@@ -71,7 +72,7 @@ def staged(small_rig):
 def test_fused_step_matches_staged(small_rig, staged):
     """(a) A fused pipeline's frame equals the staged frame bit for bit."""
     pipe = FramePipeline(_rig(small_rig), _cfg(small_rig, fused=True), device="cpu")
-    assert pipe.use_fast and pipe._dense_emit
+    assert pipe.use_fast and pipe.integrator.zmajor
     _assert_same(pipe.step(*staged.args), staged.out, "fused")
     assert staged.out.hit.float().mean() > 0.02
 
@@ -202,10 +203,13 @@ class _HostRoundTrips(TorchFunctionMode):
 @pytest.mark.parametrize("over", [dict(), dict(fast_path=False, shade_mode=3, render_width=96,
                                                 render_height=64)],
                          ids=["fast", "reference"])
-def test_fused_frame_has_no_host_round_trip(small_rig, staged, over):
+def test_fused_frame_has_no_host_round_trip(small_rig, staged, over, monkeypatch):
     """(h) The fused frame function, after a warm-up frame (the capture
     protocol's; the fixture's staged frame on the fast path), makes no copy
-    from the host and no host sync: what a CUDA graph capture refuses."""
+    from the host and no host sync: what a CUDA graph capture refuses. It
+    runs the card's form of the slab flags: ``FramePipeline._render`` keeps
+    them on a CUDA volume's device and reads them to the host for the CPU's
+    plain sweep alone."""
     if over:
         pipe = FramePipeline(_rig(small_rig), _cfg(small_rig, 48, **over), device="cpu")
         args = (small_rig["depth"], small_rig["color"], *pipe.default_camera())
@@ -213,6 +217,7 @@ def test_fused_frame_has_no_host_round_trip(small_rig, staged, over):
     else:
         pipe, args = staged.pipe, staged.args
     pipe.cfg = pipe.cfg._replace(fused=True)
+    monkeypatch.setattr(rmf, "slab_occupancy", rmf.slab_occupancy_device)
     try:
         inputs = pipe._inputs(*args)
         with _HostRoundTrips() as mode:
@@ -236,7 +241,7 @@ def test_fused_step_matches_jax_fused(small_rig):
               tsdf_res=(n, n, n), voxel_size=float(np.max(small_rig["bbox"].size) / n))
     jpipe = JFramePipeline(small_rig["rig"], JPipelineConfig(**kw))
     pipe = FramePipeline(_rig(small_rig), PipelineConfig(**kw), device="cpu")
-    assert jpipe.use_fast and pipe.use_fast and not pipe._use_pallas()
+    assert jpipe.use_fast and pipe.use_fast and pipe.integrator.tier == "table integrator"
     mv, proj = pipe.default_camera()
     jout = jpipe.step(small_rig["depth"], small_rig["color"], mv, proj)
     out = pipe.step(small_rig["depth"], small_rig["color"], mv, proj)

@@ -78,7 +78,7 @@ def program(cfg, rig, depth, color, cam) -> dict:
     """One fused CPU frame of the harness's pipeline, as the host's outputs."""
     pipe = harness.pipeline(cfg, rig, "cpu")
     assert pipe.tsdf_cfg.res == (144, 128, 128) and pipe.cfg.fused
-    assert not pipe._dense_emit and pipe.affine is not None
+    assert pipe.integrator.tier == "block-major"
     return harness.host_outputs(pipe.step(depth, color, *cam))
 
 

@@ -61,7 +61,7 @@ def port_l1(ladder):
     g = bg.config(ladder, "L1")
     rig, bbox, depth, color = bg.bench_frame(bg.LADDER["L1"])
     pipe = FramePipeline(rig, bg.bench_config(bbox, 128), device="cpu")
-    assert pipe._dense_emit and pipe.max_bricks == 512
+    assert pipe.integrator.zmajor and pipe.max_bricks == 512
     return g, bg.port_stages(pipe, depth, color, g, views=("default",))
 
 

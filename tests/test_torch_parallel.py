@@ -198,8 +198,9 @@ def test_slabs_every_integrator(scene, tier, tsdf, over):
     pipe = _pipe(scene.rig, tsdf, **over)
     mv = x_camera(pipe)
     want = pipe.step(scene.depth, scene.color, mv, scene.proj)
-    assert (pipe.affine is not None) == ("kernel 7" not in tier)
-    assert pipe._dense_emit == ("kernel 1" in tier)
+    assert (pipe.integrator.affine is not None) == ("kernel 7" not in tier)
+    assert pipe.integrator.zmajor == ("kernel 1" in tier)
+    assert pipe.integrator.tier in tier.replace("XLA table", "table integrator")
     got = fs.run_slabs(pipe, 2, scene.depth, scene.color, mv, scene.proj)
     _assert_same(got, want, tier)
 

@@ -296,7 +296,7 @@ def test_pipeline_reference_matches_jax(ref, over):
     assert not jpipe.use_fast and not pipe.use_fast
     assert pipe.tsdf_cfg.res == jpipe.tsdf_cfg.res == RES
     assert pipe.brick_grid.res == jpipe.brick_grid.res == ref.grid.res
-    assert pipe.affine is None and pipe.tables is None and pipe.max_bricks == jpipe.max_bricks
+    assert pipe.integrator is None and pipe.max_bricks == jpipe.max_bricks
     mv, proj = pipe.default_camera()
     assert np.array_equal(mv, ref.mv) and np.array_equal(proj, ref.proj)
     out = pipe.step_timed(ref.depth, ref.color, mv, proj)
@@ -365,7 +365,8 @@ def test_bricking_toggle_rebakes(scene, over):
         c = cfg._replace(use_bricks=on)
         if c != pipe.cfg:
             pipe._configure(c, keep_warp_bake=True)
-        assert pipe.use_fast is on and (pipe.tables is not None or not on)
+        assert pipe.use_fast is on and (pipe.integrator is not None) is on
+        assert pipe.integrator is None or pipe.integrator.tables is not None
         out = pipe.step(depth, color, mv, proj)
         res.append(pipe.tsdf_cfg.res)
         assert float(out.hit.float().mean()) > 0.02

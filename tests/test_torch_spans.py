@@ -198,7 +198,7 @@ def test_integrate_pair_counters(scene, res):
     depth-band cull classes NONE or FRONT; the outputs are those of a frame
     with the recorder off, which records nothing."""
     pipe, args = _pipeline(scene, n=res[0], tsdf_res=res, fused=True)
-    assert pipe.affine is not None and pipe._dense_emit == (res[0] % 128 == 0)
+    assert pipe.integrator.tier == ("dense emit" if res[0] % 128 == 0 else "block-major")
     SPANS.enable(64)
     SPANS.disable()
     off = pipe.step(*args)

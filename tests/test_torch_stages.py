@@ -324,8 +324,9 @@ def test_pipeline_integrator_gate(small_rig, res, use_pallas, kernel_tiers):
                          voxel_size=float(np.max(small_rig["bbox"].size) / res[0]),
                          use_pallas=use_pallas)
     pipe = FramePipeline(rig, cfg, device="cpu")
-    assert pipe._use_pallas() is kernel_tiers
-    assert (pipe.affine is not None) is kernel_tiers and (pipe.tables is None) is kernel_tiers
+    integ = pipe.integrator
+    assert (integ.tier != "table integrator") is kernel_tiers
+    assert (integ.affine is not None) is kernel_tiers and (integ.tables is None) is kernel_tiers
     pipe._session(212, 256)
     if not kernel_tiers:
-        assert torch.equal(pipe._win_off, tsdf_fast.win_offsets(pipe.tables, 212, 256, 64))
+        assert torch.equal(integ.win_off, tsdf_fast.win_offsets(integ.tables, 212, 256, 64))

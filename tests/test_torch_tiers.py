@@ -238,7 +238,8 @@ def test_table_slice_matches_jax(ref):
         render_width=RW, render_height=RH, tsdf_res=(N_TABLE,) * 3,
         voxel_size=float(np.max(ref.bbox.size) / N_TABLE), sweep_res=SWEEP,
         use_affine=False), out, filled)
-    assert pipe.affine is None and pipe.tables is not None
+    integ = pipe.integrator
+    assert integ.tier == "warp table" and integ.affine is None and integ.tables is not None
     assert any("warp tables" in s for s in logs), logs
 
 
@@ -264,5 +265,6 @@ def test_block_major_slice_matches_jax(ref):
         render_width=RW, render_height=RH, tsdf_res=(N_BLOCK,) * 3,
         voxel_size=float(np.max(ref.bbox.size) / N_BLOCK), sweep_res=SWEEP, use_pallas=True),
         out, filled)
-    assert pipe.affine is not None and not pipe._dense_emit
-    assert (pipe._wy, pipe._wx, pipe._xstride) == (212, 256, XSTRIDE2)
+    integ = pipe.integrator
+    assert integ.tier == "block-major" and integ.affine is not None and not integ.zmajor
+    assert (integ.wy, integ.wx, integ.xstride) == (212, 256, XSTRIDE2)
