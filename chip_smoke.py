@@ -15,8 +15,8 @@ a result line):
               code — 4 Kinect-v2 sensors at 512x424 (pinhole rig), a 256^3
               TSDF with brick_size 0.1, a 1280x720 render with 6 LODs. A
               warm-up FramePipeline.step (session bakes) records the
-              arguments each kernel wrapper receives; kernels 1-4 are held
-              against their plain PyTorch versions on those arguments
+              arguments each kernel wrapper receives; kernels 1-4, 10 and 11
+              are held against their plain PyTorch versions on those arguments
               (deviation beside its tolerance; brick marking exactly) and
               both timed with CUDA events; then the path: launch counters
               set to 0, FramePipeline.step_timed on distinct frames,
@@ -115,7 +115,7 @@ a result line):
               by every replay as often as by a staged frame. At pinhole 256^3
               also: the frame medians over 20 step_timed frames staged, fused,
               staged (host clock, synced; the stage means, fused the whole
-              replay under 3recon), kernels 1-4 and 10 in the launch tally
+              replay under 3recon), kernels 1-4, 10 and 11 in the launch tally
               that the capture recorded (``FrameGraphs``' ``_Graph.launches``),
               the memory reserved staged, with 1 variant and with 6, the orbit
               (``warm_variants_async`` captures the other 5 variants on its
@@ -258,7 +258,8 @@ APP_CONF = ("recon_mode: 1\nscreenWidth: 1280\nscreenHeight: 720\nplay: true\n"
             # the navigator's 2.5 starts 15 m out; 0.35 puts the spheres on screen
             "zoom: 0.35\n")
 DISTORT = 0.004            # bench.py BENCH_DISTORT: ~4 mm bake deformation
-PATH_KERNELS = ("bilateral_accum", "quality", "mark_bricks", "warp_screen")
+HOLEFILL = ("holefill_level", "holefill_resolve")   # kernel 11: the levels, the resolve
+PATH_KERNELS = ("bilateral_accum", "quality", "mark_bricks", "warp_screen") + HOLEFILL
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
 FLUSH_BYTES = 128 << 20    # read between cold calls: 2.5x the H100's 50 MB L2
@@ -271,6 +272,14 @@ TAP_OPS = 1 + 2 + 1 + 1 + 1 + 2
 # is an operand modifier), the window compare, min(dist, drm), the quotient,
 # 1 - q, the border count and the range-weight sum
 QUALITY_TAP_OPS = 7
+# fp32 operations of one tap of a holefill pyramid level: the hole test, the
+# depth-average sum, the keep test and the r, g, b and depth sums
+HOLEFILL_TAP_OPS = 7
+# fp32 operations of one pixel the holefill resolve blends: two upsampled
+# values of 4 channels, each two row outputs and one column output of two
+# products and two sums (2 * 4 * 3 * 4 = 96); s, t, the norm and the two
+# weights (9); per channel two products, a sum and a quotient (16)
+HOLEFILL_BLEND_OPS = 96 + 9 + 16
 # fp32 operations of one (voxel, sensor) of the quadratic integrator, an FMA
 # counted as two and a __fdividef as two (reciprocal, product); clamps,
 # floors and compares not counted:
@@ -482,7 +491,8 @@ def _app_phase(rig, frames, card: str, work: str):
     from rgbd_recon_torch.utils.png import read_png
 
     dev = torch.device("cuda")
-    need = ("bilateral_accum", "quality", "mark_bricks", "warp_screen", "integrate_affine")
+    need = ("bilateral_accum", "quality", "mark_bricks", "warp_screen", "integrate_affine"
+            ) + HOLEFILL
     t0 = time.perf_counter()
     scene = ks, paths, fmt = _write_app_scene(work, frames)
     rec, out_dir = os.path.dirname(paths[0]), os.path.join(work, "frames")
@@ -725,7 +735,7 @@ def _models_phase(rig, frames, card: str, work: str, check_integrator, integrato
     counts = {name: k.launches for name, k in native.KERNELS.items()}
     print(f"models: launches over the path (app modes 0/2/3, integration, calibs): {counts}")
     need = ("warp_screen", "bilateral_accum", "quality", "mark_bricks",
-            "integrate_sparse_window")
+            "integrate_sparse_window") + HOLEFILL
     if any(counts[k] == 0 for k in need):
         raise RuntimeError(f"models: kernels never launched: "
                            f"{[k for k in need if counts[k] == 0]}")
@@ -904,7 +914,7 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
         print(f"reference (a): bricking {seg}: launches over its {j - i} frames {d}; frame_step "
               f"host ms {', '.join(f'{x * 1e3:.1f}' for x in sec)} ({card})")
         need = (("warp_screen", "bilateral_accum", "quality", "mark_bricks", "integrate_affine")
-                if seg == "on" else ("warp_screen", "bilateral_accum", "quality"))
+                if seg == "on" else ("warp_screen", "bilateral_accum", "quality")) + HOLEFILL
         absent = () if seg == "on" else ("mark_bricks", "integrate_affine")
         if any(k not in d for k in need) or any(k in d for k in absent):
             raise RuntimeError(f"reference (a): bricking {seg} launched {d}")
@@ -927,7 +937,8 @@ def _reference_phase(rig, bbox, frames, golden, mv, proj, card: str, work: str,
         raise RuntimeError("fast_path=False did not take the reference path")
     pipe.step(*frames[0], mv, proj)       # session bakes
     outs = drive("reference 256^3", pipe, frames, mv, proj,
-                 ("warp_screen", "bilateral_accum", "quality", "mark_bricks"), REF_BENCH_FRAMES,
+                 ("warp_screen", "bilateral_accum", "quality", "mark_bricks") + HOLEFILL,
+                 REF_BENCH_FRAMES,
                  rcfg.tsdf_res)
     skip = float(outs[0].num_samples.float().mean())
     pipe._configure(rcfg._replace(skip_space=False), keep_warp_bake=True)
@@ -1116,8 +1127,12 @@ def _fused_pinhole(pipe, frames, mv, proj, card: str, reserved_0: int) -> None:
     missing = [k for k in need if not tally.get(k)]
     if missing:
         raise RuntimeError(f"fused graph {key}: kernels {missing} not in its launches {tally}")
+    # kernel 11 at 1280x720 with 6 LODs: 5 levels and one resolve a replay
+    if (tally.get("holefill_level"), tally.get("holefill_resolve")) != (5, 1):
+        raise RuntimeError(f"fused graph {key}: kernel 11 launches {tally} a replay, not "
+                           f"5 levels and 1 resolve")
     print(f"fused pinhole 256^3: the graph of {key} launches {tally} a replay "
-          f"(kernels 1-4 and 10 recorded at its capture) ({card})")
+          f"(kernels 1-4, 10 and 11 recorded at its capture) ({card})")
 
     # the orbit: the other five variants captured on warm_variants_async's thread
     logs = []
@@ -1897,7 +1912,8 @@ def main() -> int:
     import numpy as np
     from rgbd_recon_torch import native
     from rgbd_recon_torch.calibration.synthetic import bench_inputs
-    from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp, raymarch_fast as rmf
+    from rgbd_recon_torch.ops import assemble, bricks, inpaint, preprocess as pp
+    from rgbd_recon_torch.ops import raymarch_fast as rmf
     from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse, warp as warp_ops
     from rgbd_recon_torch.ops.tsdf_fast import (occupied_bricks, occupied_list, pack_frames,
                                                 pack_planes)
@@ -2081,6 +2097,7 @@ def main() -> int:
         "warp_screen_registration": (pp, "warp_screen"),
         "warp_screen_screen": (rmf, "warp_screen"),
         "integrate_dense": (integ_mod, "integrate_dense"),
+        "holefill": (inpaint, "build_pyramid"),
     })
 
     # bilateral_accum: the 13x13 accumulators of the 4 x 424 x 512 frame
@@ -2111,6 +2128,30 @@ def main() -> int:
            lambda: pp.quality_cuda(*q_args), lambda: pp.quality_plain(*q_args), 20,
            8 * dn.numel() + 24 * n_in + q_args[3].numel() * 4,
            n_in * 169 * QUALITY_TAP_OPS)
+
+    # holefill (kernel 11): the pyramid's levels and the resolve on the
+    # frame's rendered 1280 x 720 image, every level and the output bit for
+    # bit the twins; its work: the image read once, each coarser level
+    # written and read again, the output written; the level taps and the
+    # pixels the resolve blends (holes at LOD 0 that are no background)
+    (h_col, h_dep, h_lods), _ = recs["holefill"].calls[0]
+    kc, kd = inpaint.build_pyramid(h_col, h_dep, h_lods)
+    pc, pd = inpaint.build_pyramid_plain(h_col, h_dep, h_lods)
+    got, want = inpaint.colorfill(kc, kd), inpaint.colorfill_plain(pc, pd)
+    same = len(kc) == len(pc) and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(kc + kd + [got], pc + pd + [want]))
+    hh, hw = h_dep.shape
+    n_blend = int(((h_col[..., 3] <= 0) & (h_dep < 1)).sum())
+    lvl_px = sum(d.numel() for d in kd[1:])
+    print(f"  holefill: {len(kc)} LODs {[tuple(d.shape) for d in kd]}, {n_blend} pixels "
+          f"blended of {hh * hw}")
+    report("holefill", "rgbd_recon_torch/csrc/holefill.cu",
+           "none (rgbd_recon_tpu/ops/inpaint.py, XLA ops)", _errs(got, want), "bit for bit",
+           same, lambda: inpaint.colorfill(*inpaint.build_pyramid(h_col, h_dep, h_lods)),
+           lambda: inpaint.colorfill_plain(*inpaint.build_pyramid_plain(h_col, h_dep, h_lods)),
+           20, hh * hw * (20 + 16) + 2 * lvl_px * 20,
+           lvl_px * 16 * HOLEFILL_TAP_OPS + n_blend * HOLEFILL_BLEND_OPS)
 
     # mark_bricks: the world points of all 4 sensors, integer-exact; its
     # work: every valid flag, the 12 bytes of each valid point (the only
@@ -2200,6 +2241,7 @@ def main() -> int:
                  PINHOLE_FRAMES, cfg.tsdf_res, split={"warp_screen": [
                      (pp, "warp_screen", lambda a, kw: ws_entry["registration"]),
                      (rmf, "warp_screen", lambda a, kw: ws_entry["screen"])]})
+    launches["holefill"] = sum(launches[k] for k in HOLEFILL)
     # phase 11 (d) renders this path's production volume of the first frame
     pre = pipe._pre(*pipe._sensor_inputs(*frames[0]))
     golden = dict(zip(("vol", "cvol"), pipe._integrate(pre)), sweep_res=pipe._sweep_res(),

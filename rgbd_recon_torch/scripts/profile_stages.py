@@ -153,10 +153,15 @@ def main() -> int:
             pipe.integrator.zmajor),
             args, iters, graph)
 
-    # --- holefill
-    pyr = timeit("build_pyramid", lambda c, d: inpaint.build_pyramid(c, d, pipe.cfg.num_lods),
+    # --- holefill: kernel 11's levels and resolve beside the plain twins,
+    # on the same rendered frame
+    lods = pipe.cfg.num_lods
+    pyr = timeit("build_pyramid (kernel 11)", lambda c, d: inpaint.build_pyramid(c, d, lods),
                  [(out.color, out.depth)], iters)
-    timeit("colorfill", inpaint.colorfill, [pyr], iters)
+    timeit("colorfill (kernel 11)", inpaint.colorfill, [pyr], iters)
+    pyr_plain = timeit("build_pyramid_plain", lambda c, d: inpaint.build_pyramid_plain(
+        c, d, lods), [(out.color, out.depth)], iters)
+    timeit("colorfill_plain", inpaint.colorfill_plain, [pyr_plain], iters)
 
     # --- the whole frame
     frames = [(d, c, mv, proj) for d, c in host]

@@ -15,7 +15,7 @@ import torch
 
 from rgbd_recon_torch import native
 from rgbd_recon_torch.calibration import synthetic
-from rgbd_recon_torch.ops import assemble, bricks, preprocess as pp
+from rgbd_recon_torch.ops import assemble, bricks, inpaint, preprocess as pp
 from rgbd_recon_torch.ops import tsdf_dense, tsdf_persist, tsdf_sparse
 from rgbd_recon_torch.ops.tsdf_fast import occupied_bricks, occupied_list, pack_frames, pack_planes
 from rgbd_recon_torch.ops.warp import (NEIGHBORHOOD, piecewise_eval_cuda, piecewise_eval_plain,
@@ -1139,3 +1139,138 @@ def test_k4_256_fused_quality_cuda(dev, k4_256, monkeypatch):
     launches = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
     assert launches["quality"] == 3 and launches["bilateral_accum"] == 3, launches
     assert len(pipe._graphs.keys()) == 1
+
+
+# -- kernel 11: holefill, the inpaint pyramid and the colorfill resolve --------
+
+HOLEFILL = ("holefill_level", "holefill_resolve")
+
+
+def _holefill_case(case, rng):
+    """(color [H, W, 4], depth [H, W], LODs) on the CPU for one case: a
+    shaded image with scattered holes and hole blocks of alpha exactly 0 and
+    negative, the holes in front of geometry (depth < 1) and background
+    (depth >= 1, the LOD-0 holes the resolve leaves transparent)."""
+    h, w, lods = {"bench": (720, 1280, 6), "odd": (45, 83, 8), "one_lod": (45, 83, 1),
+                  "two_lods": (45, 83, 2), "all_hole": (64, 96, 6),
+                  "no_holes": (64, 96, 6), "background": (120, 200, 6)}[case]
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    depth = 0.3 + 0.4 * xx + 0.1 * np.sin(9 * yy) + 0.01 * rng.random((h, w))
+    color = np.stack([rng.random((h, w)), 0.5 * xx + 0.2 * rng.random((h, w)),
+                      yy * rng.random((h, w)), 0.5 + 0.5 * rng.random((h, w))], -1)
+    hole = rng.random((h, w)) < 0.3
+    hole[h // 4:h // 2, w // 5:w // 2] = True          # a block several levels deep
+    hole[-h // 5:, -w // 3:] = True
+    far = np.zeros((h, w), bool)
+    far[:h // 6, :] = True                               # background: holes at depth >= 1
+    far[-h // 5:, -w // 3:] = True
+    if case == "all_hole":
+        hole[:] = True
+        far = xx > 0.5                                   # front and back hole colors
+    elif case == "no_holes":
+        hole[:] = False
+        far[:] = False
+    elif case == "background":
+        far = rng.random((h, w)) < 0.4
+        hole |= far
+    depth = np.where(far, 1.0 + rng.random((h, w)), depth)
+    # hole alphas: exactly 0, -1 and other negatives
+    color[..., 3] = np.where(hole, rng.choice([0.0, -1.0, -0.25], (h, w)), color[..., 3])
+    return (torch.from_numpy(np.ascontiguousarray(color, np.float32)),
+            torch.from_numpy(np.ascontiguousarray(depth, np.float32)), lods)
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+@pytest.mark.parametrize("case", ["bench", "odd", "one_lod", "two_lods", "all_hole",
+                                  "no_holes", "background"])
+def test_holefill_cuda(dev, case):
+    """Kernel 11 equals the plain twins on the card bit for bit: every
+    level's color and depth, the resolve on the twins' own pyramid, and the
+    whole chain; one launch a level and one resolve. Cases: the bench's
+    720 x 1280 with 6 LODs, an odd 45 x 83 image asking 8 LODs (odd levels,
+    the stop at 1 x 2), 1 and 2 LODs, an all-hole image with front and back
+    hole colors, no holes, and background pixels (LOD-0 holes at depth
+    >= 1); hole alphas of exactly 0 and negative in every case."""
+    rng = np.random.default_rng(21)
+    color, depth, lods = _holefill_case(case, rng)
+    color, depth = color.to(dev), depth.to(dev)
+    before = {k: native.KERNELS[k].launches for k in HOLEFILL}
+    kc, kd = inpaint.build_pyramid(color, depth, lods)
+    got = inpaint.colorfill(kc, kd)
+    n = len(kc)
+    assert {k: native.KERNELS[k].launches - before[k] for k in HOLEFILL} == {
+        "holefill_level": n - 1, "holefill_resolve": 1}
+    pc, pd = inpaint.build_pyramid_plain(color, depth, lods)
+    assert len(pc) == n and n == (6 if case == "odd" else lods)
+    for lvl in range(1, n):
+        assert _same_bits(kc[lvl], pc[lvl]), (lvl, "color")
+        assert _same_bits(kd[lvl], pd[lvl]), (lvl, "depth")
+    want = inpaint.colorfill_plain(pc, pd)
+    assert _same_bits(inpaint.colorfill_cuda(pc, pd), want)
+    bad = got.view(torch.int32) != want.view(torch.int32)
+    assert not bool(bad.any()), (int(bad.sum()), got[bad][:8], want[bad][:8])
+    alpha0 = color[..., 3]
+    background = (alpha0 <= 0) & (depth >= 1)
+    assert bool((got[background] == color[background]).all())
+    if case in ("bench", "odd", "all_hole", "background"):
+        assert bool(((alpha0 <= 0) & ~background).any())     # pixels the blend fills
+    if case == "all_hole":
+        assert bool((kc[1][..., 3] == -1).any()) and bool((kc[1][..., 1] == 1).any())
+
+
+def test_holefill_cuda_refuses(dev):
+    """The wrappers raise on what kernel 11 does not take (no fallback)."""
+    color = torch.zeros((8, 10, 4), device=dev)
+    depth = torch.zeros((8, 10), device=dev)
+    with pytest.raises(TypeError):
+        inpaint.inpaint_downsample_cuda(color.double(), depth)
+    with pytest.raises(ValueError):
+        inpaint.inpaint_downsample_cuda(color.transpose(0, 1), depth)
+    with pytest.raises(ValueError):
+        inpaint.inpaint_downsample_cuda(color[:1], depth[:1])
+    with pytest.raises(ValueError):
+        inpaint.colorfill_cuda([color] * (inpaint.MAX_LODS + 1), [depth])
+    with pytest.raises(ValueError):
+        inpaint.colorfill_cuda([torch.zeros((8, 5, 4), device=dev)], [depth])
+
+
+def test_k4_256_fused_holefill_cuda(dev, k4_256, monkeypatch):
+    """At ``k4-256.static``'s shape the fused frame equals the staged frame
+    bit for bit on two frames, each replay's tally holds kernel 11's 5
+    levels and one resolve, and the staged frames' holefill inputs give
+    kernel 11 the twins' bits."""
+    from recon_bench import harness
+
+    cell, rig, depth, color, mv, proj = k4_256
+    pipe = harness.pipeline(cell.config, rig, dev)
+    pipe.cfg = pipe.cfg._replace(fused=False)
+    calls = []
+    pyramid = inpaint.build_pyramid
+
+    def spy(*args):
+        calls.append(args)
+        return pyramid(*args)
+
+    monkeypatch.setattr(inpaint, "build_pyramid", spy)
+    staged = [pipe.step(depth[i], color[i], mv, proj) for i in range(2)]
+    monkeypatch.setattr(inpaint, "build_pyramid", pyramid)
+    assert len(calls) == 2 and calls[0][0].shape == (720, 1280, 4) and calls[0][2] == 6
+    for args in calls:
+        assert _same_bits(inpaint.colorfill(*pyramid(*args)),
+                          inpaint.colorfill_plain(*inpaint.build_pyramid_plain(*args)))
+    pipe.cfg = pipe.cfg._replace(fused=True)
+    pipe.warmup(depth[0], color[0], mv, proj)          # the capture
+    for k in native.KERNELS.values():
+        k.launches = 0
+    for i in (0, 1, 0):
+        out = pipe.step(depth[i], color[i], mv, proj)
+        torch.cuda.synchronize()
+        _assert_same(out, staged[i], f"frame {i}")
+    launches = {n: k.launches for n, k in native.KERNELS.items() if k.launches}
+    assert launches["holefill_level"] == 3 * 5 and launches["holefill_resolve"] == 3, launches
+    (key,) = pipe._graphs.keys()
+    tally = pipe._graphs._graphs[key].launches
+    assert tally["holefill_level"] == 5 and tally["holefill_resolve"] == 1, tally
